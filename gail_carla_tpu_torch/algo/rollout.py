@@ -1,0 +1,141 @@
+"""On-device rollout collection: port of ``gail_carla_tpu/algo/rollout.py``
+(``tools/learn.py:111-133``). The policy acts and the world steps on the
+device, one Python iteration per step in place of ``lax.scan``; each
+step's observation comes from the BEV renderer (the CUDA kernel on the
+card).
+
+Only ``store_obs=False`` is ported: the rollout keeps the compact render
+states, from which minibatches re-render; the bit-packed observation
+store comes with the training slice.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Optional, Tuple
+
+import torch
+
+from gail_carla_tpu_torch.config import EnvConfig
+from gail_carla_tpu_torch.models import policy as policy_mod
+from gail_carla_tpu_torch.ops.bev import render_bev_batch_auto
+from gail_carla_tpu_torch.sim.env import step_batch
+
+
+@dataclasses.dataclass
+class Rollout:
+    """(T, N, ...) on-policy buffer; row [T] of metrics/render/values holds
+    the bootstrap step."""
+
+    render: object               # RenderState, leaves (T+1, N, ...)
+    metrics: torch.Tensor        # (T+1, N, 4)
+    obs: Optional[torch.Tensor]  # stored observations (not ported: None)
+    actions: torch.Tensor        # (T, N, 2)
+    logp: torch.Tensor           # (T, N)
+    values: torch.Tensor         # (T+1, N)
+    env_rewards: torch.Tensor    # (T, N)
+    masks: torch.Tensor          # (T+1, N); masks[t+1] = 0 if step t ended
+    gail_rewards: torch.Tensor   # (T, N), filled by the relabel pass
+
+    @property
+    def T(self):
+        return self.actions.shape[0]
+
+    @property
+    def N(self):
+        return self.actions.shape[1]
+
+
+def obs_batch(scene, cfg: EnvConfig, render_state):
+    """The policy observation of a render-state batch: the 3-channel BEV."""
+    if cfg.obs_mode != "bev":
+        raise NotImplementedError(
+            f"obs_mode {cfg.obs_mode!r} is not ported yet (only 'bev')"
+        )
+    return render_bev_batch_auto(scene, cfg, render_state)
+
+
+def stack_states(states: List):
+    """Stack a list of same-structure dataclass states along a new axis 0."""
+    first = states[0]
+    return type(first)(**{
+        f.name: torch.stack([getattr(s, f.name) for s in states])
+        for f in dataclasses.fields(first)
+    })
+
+
+def collect_rollout(
+    scene,
+    cfg: EnvConfig,
+    net,
+    env_states,
+    metrics0,
+    render0,
+    generator: Optional[torch.Generator],
+    n_steps: int,
+    store_obs: bool = False,
+    action_noise: Optional[torch.Tensor] = None,
+) -> Tuple:
+    """Returns (env_states', metrics', render', rollout, ep_stats).
+    ``action_noise`` (n_steps, N, 2) optionally supplies the standard
+    normal action draws; otherwise ``generator`` draws them, and the
+    environment's draws."""
+    if store_obs:
+        raise NotImplementedError(
+            "store_obs=True needs the bit-packed observation store, which "
+            "is not ported yet"
+        )
+    st, metrics, render = env_states, metrics0, render0
+    tr = {k: [] for k in ("metrics", "render", "action", "logp", "value",
+                          "reward", "done", "ep_reward", "ep_length",
+                          "completed")}
+    for t in range(n_steps):
+        obs = obs_batch(scene, cfg, render)
+        value, action, logp = policy_mod.act(
+            net, obs, metrics, generator,
+            noise=None if action_noise is None else action_noise[t],
+        )
+        st2, out = step_batch(scene, cfg, st, action, generator)
+        tr["metrics"].append(metrics)
+        tr["render"].append(render)
+        tr["action"].append(action)
+        tr["logp"].append(logp)
+        tr["value"].append(value)
+        tr["reward"].append(out.reward)
+        tr["done"].append(out.done)
+        tr["ep_reward"].append(out.info["episode_reward"])
+        tr["ep_length"].append(out.info["episode_length"])
+        tr["completed"].append(out.info["route_completed"])
+        st, metrics, render = st2, out.metrics, out.render
+
+    # bootstrap value for the final obs (tools/learn.py:137-139)
+    obs_f = obs_batch(scene, cfg, render)
+    value_f, _, _ = policy_mod.act(net, obs_f, metrics, deterministic=True)
+
+    done = torch.stack(tr["done"])
+    masks = 1.0 - done.to(torch.float32)
+    rollout = Rollout(
+        render=stack_states(tr["render"] + [render]),
+        metrics=torch.stack(tr["metrics"] + [metrics]),
+        obs=None,
+        actions=torch.stack(tr["action"]),
+        logp=torch.stack(tr["logp"]),
+        values=torch.stack(tr["value"] + [value_f]),
+        env_rewards=torch.stack(tr["reward"]),
+        masks=torch.cat([torch.ones_like(masks[:1]), masks]),
+        gail_rewards=torch.zeros_like(masks),
+    )
+
+    ep_reward = torch.stack(tr["ep_reward"])
+    ep_length = torch.stack(tr["ep_length"])
+    completed = torch.stack(tr["completed"])
+    n_done = done.sum()
+    n_eps = n_done.clamp_min(1)
+    ep_stats = {
+        "n_episodes": n_done,
+        "ep_reward_mean": torch.where(done, ep_reward, 0.0).sum() / n_eps,
+        "ep_length_mean": torch.where(done, ep_length, 0).sum() / n_eps,
+        "completion_rate": torch.where(
+            done, completed.to(torch.float32), 0.0).sum() / n_eps,
+        "env_reward_mean": rollout.env_rewards.mean(),
+    }
+    return st, metrics, render, rollout, ep_stats

@@ -1,0 +1,17 @@
+"""Device selection shared by the port's entry points."""
+from __future__ import annotations
+
+import torch
+
+
+def resolve_device(device="cuda") -> torch.device:
+    """The device an entry point runs on. The default is the card; the
+    CPU is used only when the caller names it. A CUDA device that is not
+    there raises instead of falling back."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' to run on the "
+            "CPU"
+        )
+    return dev
