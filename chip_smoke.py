@@ -5,16 +5,25 @@ Run from the repository root on a machine with one CUDA card:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from ``gail_carla_tpu_torch/csrc`` into
-``gail_carla_tpu_torch/_build/``, holds each kernel against its plain
-PyTorch version on the card, then drives the policy path at the full
-width of the ``reference`` preset (the 4x4 grid town with 10 routes, 192 px
-BEV, convs 32-64-128-256, hidden 512, bfloat16 convs, random weights from a
-numpy seed): deterministic evaluation on the held-out route and a rollout,
-each through the entry points a user calls. It prints one progress line
-per phase, a JSON line of kernel measurements, the card's name and power
-limit, and as its last line ``{"ok": true, "device": {...}}``. Any failure
-raises and exits non-zero; without a CUDA device it exits non-zero before
-printing a result.
+``gail_carla_tpu_torch/_build/`` (one ``nvcc`` per source, all at once),
+holds each kernel against its plain PyTorch version on the card, then
+drives the two observation paths at the full width of the ``reference``
+preset (the 4x4 grid town with 10 routes, 192 px BEV, convs
+32-64-128-256, hidden 512, bfloat16 convs, random weights from a numpy
+seed), each through the entry points a user calls: deterministic
+evaluation on the held-out route and a rollout.
+
+- the ``"bev"`` path: 3-channel observation, no traffic, kernel
+  ``bev_raster`` (the TPU kernel ``ops/bev_pallas.py``);
+- the ``"bev6"`` path: 6-channel observation with 20 NPC vehicles and 50
+  walkers per env (NoCrash "regular" Town01 densities), kernel
+  ``bev6_raster`` (the TPU kernel ``ops/bev6_pallas.py``).
+
+It prints one progress line per phase, a per-step time breakdown of each
+path, a JSON line of kernel measurements, the card's name and power
+limit, and as its last line ``{"ok": true, "device": {...}}``. Any
+failure raises and exits non-zero; without a CUDA device it exits
+non-zero before printing a result.
 
 float32 matrix products and convolutions run in full float32: TF32 is
 switched off for both (``torch.backends.cuda.matmul.allow_tf32`` and
@@ -22,6 +31,7 @@ switched off for both (``torch.backends.cuda.matmul.allow_tf32`` and
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -37,12 +47,21 @@ from gail_carla_tpu_torch.config import EnvConfig, ModelConfig
 from gail_carla_tpu_torch.convert import init_policy
 from gail_carla_tpu_torch.models import policy as policy_mod
 from gail_carla_tpu_torch.ops import bev as bev_plain
-from gail_carla_tpu_torch.ops import bev_cuda
+from gail_carla_tpu_torch.ops import bev6 as bev6_plain
+from gail_carla_tpu_torch.ops import bev6_cuda, bev_cuda
 from gail_carla_tpu_torch.scene.scene import make_benchmark_scene
-from gail_carla_tpu_torch.sim.env import RenderState, reset_batch, step_batch
+from gail_carla_tpu_torch.sim.env import (
+    RenderState, draw_reset, draw_step, reset_batch, step_batch,
+)
+from gail_carla_tpu_torch.sim.traffic import step_traffic
 from gail_carla_tpu_torch.train import make_presets
 
-KERNEL_SOURCES = ("bev_raster.cu",)
+KERNEL_SOURCES = ("bev_raster.cu", "bev6_raster.cu")
+# NoCrash "regular" Town01 traffic (gail_carla_tpu/envs/suites.py:40-46)
+N_VEHICLES, N_WALKERS = 20, 50
+# depth of each path: evaluation on the held-out route, then a rollout
+EVAL_ROUTE, EVAL_ENVS, EVAL_STEPS = 3, 16, 200
+ROLL_ENVS, ROLL_STEPS = 256, 32
 # H100 SXM peaks (NVIDIA data sheet, dense, at 700 W): float32 outside the
 # tensor cores, and HBM3 bandwidth
 PEAK_F32_FLOPS = 67e12
@@ -98,23 +117,27 @@ def route_poses(scene, n: int, seed: int):
     )
 
 
-def bev_bound_ms(inp: bev_plain.BevInputs, w: int):
-    """Least time the card could take for one render of these inputs:
-    the larger of the flops this data needs (live segments only, ~12 per
-    pixel and segment) over the float32 peak, and the bytes (each input
-    read once, the output written once) over the memory rate."""
-    counts = inp.counts.to(torch.int64)
-    segs = counts[:, 0].sum() + counts[:, 1].sum()
-    segs = int(segs) + inp.route.shape[0] * inp.route.shape[1]
-    flops = 12.0 * w * w * segs
-    nbytes = sum(t.numel() * t.element_size() for t in (
-        inp.pose, inp.counts, inp.bnd, inp.lane, inp.lane_val, inp.lane_w,
-        inp.route)) + inp.pose.shape[0] * 3 * w * w * 4
+def bound_ms(flops: float, tensors, out_bytes: int):
+    """Least time the card could take for the same work: the larger of
+    ``flops`` over the float32 peak and the bytes moved (each input tensor
+    read once, ``out_bytes`` written once) over the memory rate.
+    Returns (ms, "operations" or "bytes")."""
+    nbytes = sum(t.numel() * t.element_size() for t in tensors) + out_bytes
     t_ops = flops / PEAK_F32_FLOPS * 1e3
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     if t_ops >= t_bytes:
         return t_ops, "operations"
     return t_bytes, "bytes"
+
+
+def bev_bound_ms(inp: bev_plain.BevInputs, w: int):
+    """``bound_ms`` of one render of these inputs, counting the flops this
+    data needs: live segments only, ~12 per pixel and segment."""
+    counts = inp.counts.to(torch.int64)
+    segs = int(counts.sum()) + inp.route.shape[0] * inp.route.shape[1]
+    return bound_ms(12.0 * w * w * segs, (
+        inp.pose, inp.counts, inp.bnd, inp.lane, inp.lane_val, inp.lane_w,
+        inp.route), inp.pose.shape[0] * 3 * w * w * 4)
 
 
 def check_kernel(scene, cfg: EnvConfig, n: int, seed: int):
@@ -134,6 +157,254 @@ def check_kernel(scene, cfg: EnvConfig, n: int, seed: int):
         raise AssertionError(f"kernel and plain version differ at {diff} "
                              f"values (W={cfg.bev_width})")
     return err
+
+
+def to_device(x, dev):
+    """A tensor, or a (nested) tuple of tensors and Nones, on ``dev``."""
+    if x is None:
+        return None
+    if isinstance(x, torch.Tensor):
+        return x.to(dev)
+    return type(x)(*(to_device(v, dev) for v in x))
+
+
+def bev6_states(scene, cfg: EnvConfig, n: int, seed: int):
+    """A RenderState of ``n`` envs after 10 steps of a bev6 rollout with
+    traffic; the first 32 envs are then moved next to stop lines (at
+    random sim steps, so every light phase shows) and to active stop
+    signs, with their first 4 vehicles and 6 walkers in the view
+    (``ops/bev6.py::place_in_view``), so that every channel of the kernel
+    is drawn."""
+    dev = scene.device
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    route_ids = torch.arange(n, device=dev) % scene.n_routes
+    st, met, ren = reset_batch(scene, cfg, route_ids, gen)
+    net = init_policy(ModelConfig(), (6, cfg.bev_width, cfg.bev_width),
+                      seed=seed, device=dev)
+    _, _, ren, _, _ = collect_rollout(scene, cfg, net, st, met, ren, gen, 10)
+    return bev6_plain.place_in_view(scene, ren, 32,
+                                    np.random.default_rng(seed),
+                                    (6.0, 20.0, 12.0), 4, 6)
+
+
+def boxes_in_view(cfg: EnvConfig, inp: bev6_plain.Bev6Inputs) -> int:
+    """How many box rows of these inputs can draw a pixel: those with
+    non-negative half extents whose bounding circle meets their env's
+    view rectangle (forward -ev_to_bottom .. W - ev_to_bottom px, W/2 px
+    to each side, over ``pixels_per_meter``)."""
+    pose, b = inp.base.pose, inp.boxes
+    ppm, w = cfg.pixels_per_meter, cfg.bev_width
+    dx = b[..., 0] - pose[:, None, 0]
+    dy = b[..., 1] - pose[:, None, 1]
+    c, s = pose[:, None, 2], pose[:, None, 3]
+    fwd = dx * c + dy * s
+    side = (-dx * s + dy * c).abs()
+    f_lo = -cfg.pixels_ev_to_bottom / ppm
+    f_hi = (w - cfg.pixels_ev_to_bottom) / ppm
+    df = torch.clamp(torch.maximum(f_lo - fwd, fwd - f_hi), min=0.0)
+    ds = torch.clamp(side - 0.5 * w / ppm, min=0.0)
+    hl, hw = b[..., 4], b[..., 5]
+    live = (hl >= 0.0) & (hw >= 0.0) & (df * df + ds * ds
+                                        <= hl * hl + hw * hw)
+    return int(live.sum())
+
+
+def bev6_bound_ms(cfg: EnvConfig, inp: bev6_plain.Bev6Inputs):
+    """``bound_ms`` of one 6-channel render of these inputs, counting the
+    flops this data needs: live segments only, ~12 per pixel and segment;
+    10 per pixel and box (2 subtractions, 4 multiplies, 2 adds, 2
+    compares) for the boxes that can reach the view; and ~20 per box and
+    env to cull the rest. Returns (ms, bound_by, boxes in view)."""
+    b = inp.base
+    n, w = b.pose.shape[0], cfg.bev_width
+    segs = int(inp.counts.to(torch.int64).sum()) + n * b.route.shape[1]
+    in_view = boxes_in_view(cfg, inp)
+    flops = (w * w * (12.0 * segs + 10.0 * in_view)
+             + 20.0 * inp.boxes.shape[0] * inp.boxes.shape[1])
+    return bound_ms(flops, (
+        b.pose, inp.counts, b.bnd, b.lane, b.lane_val, b.lane_w, b.route,
+        inp.tl, inp.tl_val, inp.boxes), n * 6 * w * w * 4) + (in_view,)
+
+
+def check_kernel6(scene, cfg: EnvConfig, ren: RenderState):
+    """bev6 kernel vs plain version on the same fetched inputs; raises
+    unless every value is equal and the signal, vehicle and walker
+    channels are drawn, and returns the max abs difference."""
+    inp = bev6_plain.bev6_inputs(scene, cfg, ren)
+    a = bev6_cuda.render_bev6_cuda(cfg, inp, scene.bnd_dmax)
+    b = bev6_plain.render_bev6_plain(cfg, inp, scene.bnd_dmax)
+    torch.cuda.synchronize()
+    n, w = ren.yaw.shape[0], cfg.bev_width
+    if a.shape != (n, 6, w, w):
+        raise AssertionError(f"kernel output shape {tuple(a.shape)}")
+    diff = int((a != b).sum())
+    err = float((a - b).abs().max())
+    lit = [int((a[:, c] > 0).sum()) for c in range(6)]
+    print(f"  bev6_raster W={w} n={n}: {diff} of {a.numel()} values "
+          f"differ, max abs err {err}, nonzero px per channel {lit}",
+          flush=True)
+    if diff != 0:
+        raise AssertionError(f"bev6 kernel and plain version differ at "
+                             f"{diff} values (W={w})")
+    if min(lit[3:]) == 0:
+        raise AssertionError("a signal/vehicle/walker channel is empty: "
+                             "the comparison would prove nothing")
+    return err
+
+
+def max_abs_diff(a: torch.Tensor, b: torch.Tensor) -> float:
+    """max |a - b| over two same-shape tensors (0 if they are empty)."""
+    if a.numel() == 0:
+        return 0.0
+    return float((a.cpu() - b.cpu()).abs().max())
+
+
+def card_vs_cpu(scene, cfg: EnvConfig, obs_shape, seed: int):
+    """A float32 rollout of 4 envs x 6 steps on the card and on the CPU
+    with the same injected draws (made on the CPU); raises unless the
+    route cursors and NPC patrol cursors are equal and positions and
+    values agree within 1e-3. Returns (max |dxy|, max |dvalue|)."""
+    n, n_steps = 4, 6
+    f32_cfg = ModelConfig(dtype="float32")
+    cpu = torch.device("cpu")
+    gen = torch.Generator()
+    gen.manual_seed(seed)
+    cpu_scene = scene.to(cpu)
+    reset_draws = draw_reset(cpu_scene, cfg, n, gen)
+    env_draws = [draw_step(cpu_scene, cfg, n, gen) for _ in range(n_steps)]
+    noise = torch.randn((n_steps, n, 2), generator=gen)
+    outs = []
+    for d in (scene.device, cpu):
+        sc = cpu_scene if d == cpu else scene
+        net = init_policy(f32_cfg, obs_shape, seed=seed, device=d)
+        st, met, ren = reset_batch(sc, cfg, torch.arange(n, device=d),
+                                   draws=to_device(reset_draws, d))
+        st, _, _, ro, _ = collect_rollout(
+            sc, cfg, net, st, met, ren, None, n_steps,
+            action_noise=noise.to(d),
+            env_draws=[to_device(e, d) for e in env_draws])
+        outs.append((st, ro))
+    (gs, g), (cs, c) = outs
+    if not torch.equal(g.render.head.cpu(), c.render.head):
+        raise AssertionError("route cursors differ between card and CPU")
+    if not torch.equal(gs.traffic.veh_head.cpu(), cs.traffic.veh_head):
+        raise AssertionError("NPC patrol cursors differ between card and CPU")
+    pos_err = max(max_abs_diff(g.render.xy, c.render.xy),
+                  max_abs_diff(g.render.npc_pose[..., :2],
+                               c.render.npc_pose[..., :2]),
+                  max_abs_diff(g.render.walker_pose[..., :2],
+                               c.render.walker_pose[..., :2]))
+    val_err = max_abs_diff(g.values, c.values)
+    print(f"  card vs CPU {cfg.obs_mode} rollout ({n} envs x {n_steps} "
+          f"steps, {cfg.n_npc_vehicles} vehicles, {cfg.n_npc_walkers} "
+          f"walkers, float32): max |dxy| {pos_err:.3e} m, max |dvalue| "
+          f"{val_err:.3e}", flush=True)
+    if pos_err > 1e-3 or val_err > 1e-3:
+        raise AssertionError("card and CPU rollouts disagree")
+
+
+def drive_path(scene, cfg: EnvConfig, net, gen, routes, lib):
+    """The path's entry points with every launch count set to 0 just
+    before: evaluation (``EVAL_ENVS`` envs x ``EVAL_STEPS`` steps on route
+    ``EVAL_ROUTE``), then a rollout of ``ROLL_ENVS`` x ``ROLL_STEPS``.
+    Raises on non-finite outputs, unless ``lib``'s kernel ran once per
+    render, or if another kernel ran. Returns (launches, the rollout's
+    start state)."""
+    libs = (bev_cuda.LIB, bev6_cuda.LIB)
+    for other in libs:
+        other.launches = 0
+    t = time.time()
+    ev = evaluate_policy(scene, cfg, net, gen, route_id=EVAL_ROUTE,
+                         n_envs=EVAL_ENVS, max_steps=EVAL_STEPS)
+    torch.cuda.synchronize()
+    if not torch.isfinite(ev["reward"]).all():
+        raise AssertionError("non-finite evaluation reward")
+    print(f"  evaluate_policy {cfg.obs_mode} route {EVAL_ROUTE}, {EVAL_ENVS} "
+          f"envs x {EVAL_STEPS} steps: "
+          f"{int(ev['done'].sum())} episodes ended, mean score_route "
+          f"{float(ev['score_route'].float().mean()):.3f}, collisions "
+          f"{int(ev['collision'].sum())}", flush=True)
+    progress(f"evaluate {cfg.obs_mode}", t)
+    eval_launches = lib.launches
+
+    t = time.time()
+    n_envs, n_steps = ROLL_ENVS, ROLL_STEPS
+    route_ids = routes[torch.arange(n_envs, device=routes.device)
+                       % len(routes)]
+    st, met, ren = reset_batch(scene, cfg, route_ids, gen)
+    torch.cuda.synchronize()
+    t_roll = time.time()
+    st2, _, _, ro, stats = collect_rollout(scene, cfg, net, st, met, ren,
+                                           gen, n_steps)
+    torch.cuda.synchronize()
+    dt_roll = time.time() - t_roll
+    launches = lib.launches
+    roll_launches = launches - eval_launches
+    for name, v in (("values", ro.values), ("logp", ro.logp),
+                    ("rewards", ro.env_rewards)):
+        if not torch.isfinite(v).all():
+            raise AssertionError(f"non-finite rollout {name}")
+    if ro.values.shape != (n_steps + 1, n_envs):
+        raise AssertionError(f"rollout values shape {tuple(ro.values.shape)}")
+    if eval_launches != EVAL_STEPS or roll_launches != n_steps + 1:
+        raise AssertionError(
+            f"kernel launches {eval_launches} + {roll_launches} != renders "
+            f"issued {EVAL_STEPS} + {n_steps + 1}"
+        )
+    if any(o.launches for o in libs if o is not lib):
+        raise AssertionError("a kernel of the other path was launched")
+    print(f"  collect_rollout {cfg.obs_mode} {n_envs} envs x {n_steps} "
+          f"steps: {n_envs * n_steps / dt_roll:.1f} env-steps/s (cold), "
+          f"{int(stats['n_episodes'])} episodes ended, kernel launches "
+          f"{roll_launches} (1 per step + bootstrap)", flush=True)
+    progress(f"rollout {cfg.obs_mode}", t)
+    return launches, (st, met, ren)
+
+
+def breakdown(scene, cfg: EnvConfig, net, gen, start, render_fn):
+    """CUDA-event ms of each part of one rollout step at the rollout's
+    batch, then a warm rollout's env-steps/s."""
+    t = time.time()
+    st, met, ren = start
+    obs = render_fn(scene, cfg, ren)
+
+    def act():
+        return policy_mod.act(net, obs, met, gen)
+
+    action = act()[1]
+    sim_time = (st.step + 1).to(torch.float32) * cfg.dt
+    parts = {
+        "render (fetch + kernel)": cuda_ms(
+            lambda: render_fn(scene, cfg, ren)),
+        "policy act": cuda_ms(act),
+        "env step": cuda_ms(
+            lambda: step_batch(scene, cfg, st, action, gen)),
+    }
+    if cfg.n_npc_vehicles or cfg.n_npc_walkers:
+        parts["of which traffic step"] = cuda_ms(
+            lambda: step_traffic(scene, cfg, st.traffic, st.ego, sim_time,
+                                 None, gen))
+    n_envs, n_steps = ren.yaw.shape[0], ROLL_STEPS
+    print(f"  {cfg.obs_mode} rollout step at {n_envs} envs: " + ", ".join(
+        f"{k} {v:.3f} ms" for k, v in parts.items()), flush=True)
+    t_roll = time.time()
+    collect_rollout(scene, cfg, net, st, met, ren, gen, n_steps)
+    torch.cuda.synchronize()
+    print(f"  warm collect_rollout {cfg.obs_mode} {n_envs} envs x {n_steps} "
+          f"steps: {n_envs * n_steps / (time.time() - t_roll):.1f} "
+          f"env-steps/s", flush=True)
+    progress(f"breakdown {cfg.obs_mode}", t)
+
+
+def kernel_line(name, source, replaces, launches, err, times):
+    k_ms, p_ms, b_ms, b_by = times
+    return {
+        "name": name, "route": "cuda", "source": source,
+        "replaces": replaces, "launches": launches, "max_abs_err": err,
+        "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": None,
+    }
 
 
 def main() -> int:
@@ -160,141 +431,95 @@ def main() -> int:
 
     preset = make_presets()["reference"]
     env_cfg, model_cfg = preset["env"], preset["model"]
+    env6_cfg = dataclasses.replace(env_cfg, obs_mode="bev6",
+                                   n_npc_vehicles=N_VEHICLES,
+                                   n_npc_walkers=N_WALKERS)
+    w = env_cfg.bev_width
     t = time.time()
     scene = make_benchmark_scene(**preset["scene"], device=dev)
     torch.cuda.synchronize()
     print(f"  scene: {scene.n_routes} routes, cell_bnd "
           f"{tuple(scene.cell_bnd.shape)}, cell_lane "
-          f"{tuple(scene.cell_lane.shape)}", flush=True)
+          f"{tuple(scene.cell_lane.shape)}, cell_tl "
+          f"{tuple(scene.cell_tl.shape)}, patrol_xy "
+          f"{tuple(scene.patrol_xy.shape)}", flush=True)
     progress("scene", t)
 
-    # --- kernel vs plain version on the card ---
+    # --- each kernel vs its plain version on the card ---
     t = time.time()
     err = max(check_kernel(scene, env_cfg, 64, SEED),
               check_kernel(scene, EnvConfig(bev_width=100), 64, SEED + 1))
-    inp = bev_plain.bev_inputs(scene, route_poses(scene, 256, SEED + 2))
-    w = env_cfg.bev_width
-    k_ms = cuda_ms(lambda: bev_cuda.render_bev_cuda(
-        env_cfg, inp, scene.bnd_dmax))
-    p_ms = cuda_ms(lambda: bev_plain.render_bev_plain(
-        env_cfg, inp, scene.bnd_dmax), iters=3, warmup=1)
-    b_ms, b_by = bev_bound_ms(inp, w)
-    print(f"  bev_raster 256 envs x {w} px: kernel {k_ms:.4f} ms, plain "
-          f"{p_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})", flush=True)
-    progress("kernel_vs_plain", t)
+    inp = bev_plain.bev_inputs(scene,
+                               route_poses(scene, ROLL_ENVS, SEED + 2))
+    b1_times = (
+        cuda_ms(lambda: bev_cuda.render_bev_cuda(
+            env_cfg, inp, scene.bnd_dmax)),
+        cuda_ms(lambda: bev_plain.render_bev_plain(
+            env_cfg, inp, scene.bnd_dmax), iters=3, warmup=1),
+    ) + bev_bound_ms(inp, w)
+    print(f"  bev_raster {ROLL_ENVS} envs x {w} px: kernel "
+          f"{b1_times[0]:.4f} ms, plain {b1_times[1]:.4f} ms, bound "
+          f"{b1_times[2]:.4f} ms ({b1_times[3]})", flush=True)
+    progress("kernel_vs_plain bev", t)
 
-    # --- end to end against the CPU (plain renderer, float32 model) ---
     t = time.time()
-    ref_cfg = EnvConfig(gnss_noise_deg=0.0, random_restart_prob=0.0)
-    f32_cfg = ModelConfig(dtype="float32")
-    noise = torch.from_numpy(np.random.default_rng(SEED).standard_normal(
-        (6, 4, 2)).astype(np.float32))
-    outs = []
-    for d in (dev, torch.device("cpu")):
-        sc = scene.to(d)
-        net = init_policy(f32_cfg, seed=SEED, device=d)
-        st, met, ren = reset_batch(sc, ref_cfg, torch.arange(4, device=d))
-        _, _, _, ro, _ = collect_rollout(sc, ref_cfg, net, st, met, ren,
-                                         None, 6, action_noise=noise.to(d))
-        outs.append(ro)
-    g, c = outs
-    if not torch.equal(g.render.head.cpu(), c.render.head):
-        raise AssertionError("route cursors differ between card and CPU")
-    pos_err = float((g.render.xy.cpu() - c.render.xy).abs().max())
-    val_err = float((g.values.cpu() - c.values).abs().max())
-    print(f"  card vs CPU rollout (4 envs x 6 steps, float32): max |dxy| "
-          f"{pos_err:.3e} m, max |dvalue| {val_err:.3e}", flush=True)
-    if pos_err > 1e-3 or val_err > 1e-3:
-        raise AssertionError("card and CPU rollouts disagree")
+    ren6 = bev6_states(scene, env6_cfg, ROLL_ENVS, SEED + 3)
+    err6 = max(check_kernel6(scene, env6_cfg, ren6),
+               check_kernel6(scene, dataclasses.replace(
+                   env6_cfg, bev_width=100), ren6))
+    inp6 = bev6_plain.bev6_inputs(scene, env6_cfg, ren6)
+    b2_bound, b2_by, in_view = bev6_bound_ms(env6_cfg, inp6)
+    b2_times = (
+        cuda_ms(lambda: bev6_cuda.render_bev6_cuda(
+            env6_cfg, inp6, scene.bnd_dmax)),
+        cuda_ms(lambda: bev6_plain.render_bev6_plain(
+            env6_cfg, inp6, scene.bnd_dmax), iters=3, warmup=1),
+        b2_bound, b2_by,
+    )
+    n_boxes = inp6.boxes.shape[0] * inp6.boxes.shape[1]
+    print(f"  bev6_raster {ROLL_ENVS} envs x {w} px ({n_boxes} boxes, "
+          f"{in_view} of them can reach the view): kernel "
+          f"{b2_times[0]:.4f} ms, plain {b2_times[1]:.4f} ms, bound "
+          f"{b2_times[2]:.4f} ms ({b2_times[3]})", flush=True)
+    progress("kernel_vs_plain bev6", t)
+
+    # --- end to end against the CPU (plain renderers, float32 model) ---
+    t = time.time()
+    quiet = dict(gnss_noise_deg=0.0, random_restart_prob=0.0)
+    card_vs_cpu(scene, dataclasses.replace(env_cfg, **quiet), (3, w, w),
+                SEED)
+    card_vs_cpu(scene, dataclasses.replace(env6_cfg, **quiet), (6, w, w),
+                SEED + 1)
     progress("reference", t)
 
-    net = init_policy(model_cfg, seed=SEED, device=dev)
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
-
-    # --- the main path: evaluation, then a rollout ---
-    bev_cuda.LIB.launches = 0
-    t = time.time()
-    ev = evaluate_policy(scene, env_cfg, net, gen, route_id=3, n_envs=16,
-                         max_steps=200)
-    torch.cuda.synchronize()
-    if not torch.isfinite(ev["reward"]).all():
-        raise AssertionError("non-finite evaluation reward")
-    print(f"  evaluate_policy route 3, 16 envs x 200 steps: "
-          f"{int(ev['done'].sum())} episodes ended, mean score_route "
-          f"{float(ev['score_route'].float().mean()):.3f}", flush=True)
-    progress("evaluate", t)
-    eval_launches = bev_cuda.LIB.launches
-
-    t = time.time()
-    n_envs, n_steps = 256, 32
     routes = torch.tensor(preset["train"].routes, device=dev)
-    route_ids = routes[torch.arange(n_envs, device=dev) % len(routes)]
-    st, met, ren = reset_batch(scene, env_cfg, route_ids, gen)
-    torch.cuda.synchronize()
-    t_roll = time.time()
-    _, _, _, ro, stats = collect_rollout(scene, env_cfg, net, st, met, ren,
-                                         gen, n_steps)
-    torch.cuda.synchronize()
-    dt_roll = time.time() - t_roll
-    launches = bev_cuda.LIB.launches
-    roll_launches = launches - eval_launches
-    for name, v in (("values", ro.values), ("logp", ro.logp),
-                    ("rewards", ro.env_rewards)):
-        if not torch.isfinite(v).all():
-            raise AssertionError(f"non-finite rollout {name}")
-    if ro.values.shape != (n_steps + 1, n_envs):
-        raise AssertionError(f"rollout values shape {tuple(ro.values.shape)}")
-    if eval_launches != 200 or roll_launches != n_steps + 1:
-        raise AssertionError(
-            f"kernel launches {eval_launches} + {roll_launches} != renders "
-            f"issued 200 + {n_steps + 1}"
-        )
-    print(f"  collect_rollout {n_envs} envs x {n_steps} steps: "
-          f"{n_envs * n_steps / dt_roll:.1f} env-steps/s, "
-          f"{int(stats['n_episodes'])} episodes ended, bev_raster launches "
-          f"{roll_launches} (1 per step + bootstrap)", flush=True)
-    progress("rollout", t)
 
-    # --- where a rollout step's time goes, at the rollout's batch ---
-    t = time.time()
-    obs = bev_cuda.render_bev_cuda_batch(scene, env_cfg, ren)
+    # --- the bev path: evaluation, rollout, breakdown ---
+    net = init_policy(model_cfg, (3, w, w), seed=SEED, device=dev)
+    launches, start = drive_path(scene, env_cfg, net, gen, routes,
+                                 bev_cuda.LIB)
+    breakdown(scene, env_cfg, net, gen, start,
+              bev_cuda.render_bev_cuda_batch)
 
-    def act():
-        return policy_mod.act(net, obs, met, gen)
-
-    action = act()[1]
-    parts = {
-        "render (fetch + kernel)": cuda_ms(
-            lambda: bev_cuda.render_bev_cuda_batch(scene, env_cfg, ren)),
-        "policy act": cuda_ms(act),
-        "env step": cuda_ms(
-            lambda: step_batch(scene, env_cfg, st, action, gen)),
-    }
-    print(f"  rollout step at {n_envs} envs: " + ", ".join(
-        f"{k} {v:.3f} ms" for k, v in parts.items()), flush=True)
-    t_roll = time.time()
-    collect_rollout(scene, env_cfg, net, st, met, ren, gen, n_steps)
-    torch.cuda.synchronize()
-    print(f"  warm collect_rollout {n_envs} envs x {n_steps} steps: "
-          f"{n_envs * n_steps / (time.time() - t_roll):.1f} env-steps/s",
-          flush=True)
-    progress("breakdown", t)
+    # --- the bev6 path with traffic: evaluation, rollout, breakdown ---
+    net6 = init_policy(model_cfg, (6, w, w), seed=SEED, device=dev)
+    launches6, start6 = drive_path(scene, env6_cfg, net6, gen, routes,
+                                   bev6_cuda.LIB)
+    breakdown(scene, env6_cfg, net6, gen, start6,
+              bev6_cuda.render_bev6_cuda_batch)
 
     torch.cuda.synchronize()
-    print(json.dumps({"kernels": [{
-        "name": "bev_raster",
-        "route": "cuda",
-        "source": "gail_carla_tpu_torch/csrc/bev_raster.cu",
-        "replaces": "gail_carla_tpu/ops/bev_pallas.py:29",
-        "launches": launches,
-        "max_abs_err": err,
-        "ms": k_ms,
-        "plain_ms": p_ms,
-        "bound_ms": b_ms,
-        "bound_by": b_by,
-        "library_ms": None,
-    }]}), flush=True)
+    print(json.dumps({"kernels": [
+        kernel_line("bev_raster", "gail_carla_tpu_torch/csrc/bev_raster.cu",
+                    "gail_carla_tpu/ops/bev_pallas.py:29", launches, err,
+                    b1_times),
+        kernel_line("bev6_raster",
+                    "gail_carla_tpu_torch/csrc/bev6_raster.cu",
+                    "gail_carla_tpu/ops/bev6_pallas.py:30", launches6, err6,
+                    b2_times),
+    ]}), flush=True)
     print(f"[chip_smoke] total {time.time() - T0:.2f}s", flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,8 +1,8 @@
 """On-device rollout collection: port of ``gail_carla_tpu/algo/rollout.py``
 (``tools/learn.py:111-133``). The policy acts and the world steps on the
 device, one Python iteration per step in place of ``lax.scan``; each
-step's observation comes from the BEV renderer (the CUDA kernel on the
-card).
+step's observation comes from the BEV renderer of ``cfg.obs_mode`` (a
+CUDA kernel on the card).
 
 Only ``store_obs=False`` is ported: the rollout keeps the compact render
 states, from which minibatches re-render; the bit-packed observation
@@ -11,14 +11,15 @@ store comes with the training slice.
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
 from gail_carla_tpu_torch.config import EnvConfig
 from gail_carla_tpu_torch.models import policy as policy_mod
 from gail_carla_tpu_torch.ops.bev import render_bev_batch_auto
-from gail_carla_tpu_torch.sim.env import step_batch
+from gail_carla_tpu_torch.ops.bev6 import render_bev6_batch_auto
+from gail_carla_tpu_torch.sim.env import StepDraws, step_batch
 
 
 @dataclasses.dataclass
@@ -46,12 +47,15 @@ class Rollout:
 
 
 def obs_batch(scene, cfg: EnvConfig, render_state):
-    """The policy observation of a render-state batch: the 3-channel BEV."""
-    if cfg.obs_mode != "bev":
-        raise NotImplementedError(
-            f"obs_mode {cfg.obs_mode!r} is not ported yet (only 'bev')"
-        )
-    return render_bev_batch_auto(scene, cfg, render_state)
+    """The policy observation of a render-state batch: the 3-channel BEV
+    (``obs_mode="bev"``) or the 6-channel one (``"bev6"``)."""
+    if cfg.obs_mode == "bev":
+        return render_bev_batch_auto(scene, cfg, render_state)
+    if cfg.obs_mode == "bev6":
+        return render_bev6_batch_auto(scene, cfg, render_state)
+    raise NotImplementedError(
+        f"obs_mode {cfg.obs_mode!r} is not ported yet (only 'bev', 'bev6')"
+    )
 
 
 def stack_states(states: List):
@@ -74,11 +78,12 @@ def collect_rollout(
     n_steps: int,
     store_obs: bool = False,
     action_noise: Optional[torch.Tensor] = None,
+    env_draws: Optional[Sequence[StepDraws]] = None,
 ) -> Tuple:
     """Returns (env_states', metrics', render', rollout, ep_stats).
     ``action_noise`` (n_steps, N, 2) optionally supplies the standard
-    normal action draws; otherwise ``generator`` draws them, and the
-    environment's draws."""
+    normal action draws and ``env_draws`` (one ``StepDraws`` per step) the
+    environment's; ``generator`` draws whatever is not supplied."""
     if store_obs:
         raise NotImplementedError(
             "store_obs=True needs the bit-packed observation store, which "
@@ -94,7 +99,8 @@ def collect_rollout(
             net, obs, metrics, generator,
             noise=None if action_noise is None else action_noise[t],
         )
-        st2, out = step_batch(scene, cfg, st, action, generator)
+        draws = {} if env_draws is None else env_draws[t]._asdict()
+        st2, out = step_batch(scene, cfg, st, action, generator, **draws)
         tr["metrics"].append(metrics)
         tr["render"].append(render)
         tr["action"].append(action)

@@ -2,10 +2,11 @@
 with a plain C interface, and load them with ``ctypes``.
 
 Each ``csrc/*.cu`` file becomes ``_build/lib<name>-<hash>.so``, where the
-hash covers the source and the flags, so a changed source rebuilds and
-an unchanged one is reused. Nothing is built when a module is imported:
-``CudaLibrary.lib`` builds at first use, and ``build_all`` builds several
-sources at once (one ``nvcc`` per source, started together).
+hash covers the source, the shared ``csrc/*.cuh`` headers and the flags,
+so a changed source or header rebuilds and an unchanged one is reused.
+Nothing is built when a module is imported: ``CudaLibrary.fn`` builds at
+first use, and ``build_all`` builds several sources at once (one ``nvcc``
+per source, started together).
 """
 from __future__ import annotations
 
@@ -46,8 +47,11 @@ def find_nvcc() -> str:
 
 def library_path(source: str) -> str:
     """Where the library built from ``csrc/<source>`` lives."""
-    with open(os.path.join(CSRC_DIR, source), "rb") as f:
-        h = hashlib.sha256(f.read())
+    h = hashlib.sha256()
+    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
+    for name in (source, *headers):
+        with open(os.path.join(CSRC_DIR, name), "rb") as f:
+            h.update(f.read())
     h.update(" ".join(NVCC_FLAGS).encode())
     stem = os.path.splitext(source)[0]
     return os.path.join(BUILD_DIR, f"lib{stem}-{h.hexdigest()[:16]}.so")

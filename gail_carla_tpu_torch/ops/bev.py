@@ -170,6 +170,17 @@ def fetch_cell_counts(scene, xy):
     return scene.cell_bnd_n[cy, cx], scene.cell_lane_n[cy, cx]
 
 
+def fetch_tl_cell(scene, xy):
+    """Per env the culled traffic-light stop lines of its cell: (segs
+    (N,Mt,4), source light index (N,Mt), n_live (N,)). The cell tables are
+    built with the road tables' margin rule (``segments.py::
+    build_tl_cells``), so drawing only these lines gives the same pixels
+    as drawing every light of the town."""
+    cy, cx = _cell_of(scene, xy)
+    return (scene.cell_tl[cy, cx], scene.cell_tl_idx[cy, cx],
+            scene.cell_tl_n[cy, cx])
+
+
 def route_window_segs(scene, route_id, head):
     """(N, K, 4) capsule segments of the route ahead of each cursor; the
     window start is clamped into the row as ``dynamic_slice`` clamps it."""

@@ -31,7 +31,7 @@ LIB = CudaLibrary(
 )
 
 
-def _check(name: str, t: torch.Tensor, dtype, shape, device):
+def check_tensor(name: str, t: torch.Tensor, dtype, shape, device):
     if not t.is_cuda:
         raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
     if t.device != device:
@@ -53,13 +53,13 @@ def render_bev_cuda(cfg: EnvConfig, inp: BevInputs, dmax: float):
     ml = inp.lane.shape[1]
     k = inp.route.shape[1]
     w = cfg.bev_width
-    _check("pose", inp.pose, torch.float32, (n, 4), dev)
-    _check("counts", inp.counts, torch.int32, (n, 2), dev)
-    _check("bnd", inp.bnd, torch.float32, (n, mb, 4), dev)
-    _check("lane", inp.lane, torch.float32, (n, ml, 4), dev)
-    _check("lane_val", inp.lane_val, torch.float32, (n, ml), dev)
-    _check("lane_w", inp.lane_w, torch.float32, (n, ml), dev)
-    _check("route", inp.route, torch.float32, (n, k, 4), dev)
+    check_tensor("pose", inp.pose, torch.float32, (n, 4), dev)
+    check_tensor("counts", inp.counts, torch.int32, (n, 2), dev)
+    check_tensor("bnd", inp.bnd, torch.float32, (n, mb, 4), dev)
+    check_tensor("lane", inp.lane, torch.float32, (n, ml, 4), dev)
+    check_tensor("lane_val", inp.lane_val, torch.float32, (n, ml), dev)
+    check_tensor("lane_w", inp.lane_w, torch.float32, (n, ml), dev)
+    check_tensor("route", inp.route, torch.float32, (n, k, 4), dev)
     if n > MAX_ENVS:
         raise ValueError(f"at most {MAX_ENVS} envs per launch, got {n}")
     if 4 * (9 * mb + 8 * ml + 6 * k) > MAX_SHARED_BYTES:

@@ -3,8 +3,9 @@
 ``criteria/collision.py:6-117``).
 
 - static layout: the vehicle body fully off the hard surface;
-- static obstacles and dynamic actors: only their empty cases are ported
-  (the procedural scene has no obstacles, and this slice runs zero NPCs).
+- dynamic: ego OBB vs NPC vehicles (separating axis) and vs walkers;
+- static obstacles: only the empty case is ported (the procedural scene
+  has none).
 """
 from __future__ import annotations
 
@@ -14,7 +15,7 @@ import torch
 
 from gail_carla_tpu_torch.ops.bev import boundary_inside
 from gail_carla_tpu_torch.sim.dynamics import VehicleParams, VehicleState
-from gail_carla_tpu_torch.sim.transforms import norm2
+from gail_carla_tpu_torch.sim.transforms import norm2, vec_global_to_ref
 
 
 class DynHits(NamedTuple):
@@ -47,15 +48,82 @@ def obstacle_collision(scene, params: VehicleParams, ego: VehicleState):
     return torch.zeros_like(ego.yaw, dtype=torch.bool)
 
 
+def _axes(yaw):
+    """(..., 2, 2) box axes [[cos, sin], [-sin, cos]] of headings (...)."""
+    c, s = torch.cos(yaw), torch.sin(yaw)
+    return torch.stack([torch.stack([c, s], dim=-1),
+                        torch.stack([-s, c], dim=-1)], dim=-2)
+
+
+def _dot2(a, b):
+    """Dot product over a last axis of size 2."""
+    return a[..., 0] * b[..., 0] + a[..., 1] * b[..., 1]
+
+
+def _first(hit):
+    """(N,) index of the first True of each row of ``hit`` (N, M), 0 if
+    there is none (``jnp.argmax`` of a bool row)."""
+    return torch.argmax(hit.to(torch.uint8), dim=1)
+
+
+def _heading_vel(speed, yaw):
+    return speed[..., None] * torch.stack([torch.cos(yaw), torch.sin(yaw)],
+                                          dim=-1)
+
+
 def dynamic_collisions(traffic, params: VehicleParams,
                        ego: VehicleState) -> DynHits:
-    """Ego vs NPC vehicles and walkers; only the zero-NPC case is ported."""
-    if traffic.veh_yaw.shape[1] != 0 or traffic.walker_yaw.shape[1] != 0:
-        raise NotImplementedError("NPC collisions are not ported yet")
+    """Ego vs NPC vehicles (OBB-OBB separating axis) and vs walkers
+    (containment in the ego box inflated by 0.4 m); the ids are those of
+    the first actor hit, and the intensity proxy is the relative speed."""
+    n, K = traffic.veh_patrol.shape
+    W = traffic.walker_patrol.shape[1]
+    rows = torch.arange(n, device=ego.yaw.device)
     f = torch.zeros_like(ego.yaw, dtype=torch.bool)
     i = torch.zeros_like(ego.yaw, dtype=torch.int32)
     z = torch.zeros_like(ego.yaw)
-    return DynHits(f, f, i, i, z, z)
+    ego_vel = _heading_vel(ego.speed, ego.yaw)                # (N, 2)
+
+    col_veh, veh_id, veh_rel = f, i, z
+    if K > 0:
+        hl, hw = params.half_length, params.half_width
+        ego_ax = _axes(ego.yaw)                                # (N, 2, 2)
+        npc_ax = _axes(traffic.veh.yaw)                        # (N, K, 2, 2)
+        d = traffic.veh.xy - ego.xy[:, None, :]                # (N, K, 2)
+        all_ax = torch.cat(
+            [ego_ax[:, None].expand(n, K, 2, 2), npc_ax], dim=2
+        )                                                      # (N, K, 4, 2)
+        proj_d = torch.abs(_dot2(all_ax, d[:, :, None, :]))
+        m_ego = torch.abs(_dot2(all_ax[:, :, :, None, :],
+                                ego_ax[:, None, None, :, :]))  # (N,K,4,2)
+        r_ego = m_ego[..., 0] * hl + m_ego[..., 1] * hw
+        m_npc = torch.abs(_dot2(all_ax[:, :, :, None, :],
+                                npc_ax[:, :, None, :, :]))
+        r_npc = m_npc[..., 0] * hl + m_npc[..., 1] * hw
+        hit = ~(proj_d > r_ego + r_npc).any(dim=2)             # (N, K)
+        col_veh = hit.any(dim=1)
+        k = _first(hit)
+        veh_id = k.to(torch.int32)
+        npc_vel = _heading_vel(traffic.veh.speed[rows, k],
+                               traffic.veh.yaw[rows, k])
+        veh_rel = norm2(ego_vel - npc_vel)
+
+    col_ped, ped_id, ped_rel = f, i, z
+    if W > 0:
+        local = vec_global_to_ref(traffic.walker_xy - ego.xy[:, None, :],
+                                  ego.yaw[:, None])
+        inside = (
+            (torch.abs(local[..., 0]) < params.half_length + 0.4)
+            & (torch.abs(local[..., 1]) < params.half_width + 0.4)
+        )
+        col_ped = inside.any(dim=1)
+        w = _first(inside)
+        ped_id = w.to(torch.int32)
+        w_vel = _heading_vel(traffic.walker_speed[rows, w],
+                             traffic.walker_yaw[rows, w])
+        ped_rel = norm2(ego_vel - w_vel)
+
+    return DynHits(col_veh, col_ped, veh_id, ped_id, veh_rel, ped_rel)
 
 
 class CollisionEvents(NamedTuple):

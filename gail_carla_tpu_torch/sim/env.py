@@ -8,10 +8,12 @@ reference's SubprocVecEnv worker.
 Randomness: the JAX version splits a PRNG key carried in the state. Here
 each consumer takes its draws as an optional argument and fills it from
 a ``torch.Generator`` when it is not given:
-- ``reset_env``: restart coin and restart position (``env.py:86-101``),
-  ``ResetDraws``;
+- ``reset_env``: restart coin and restart position (``env.py:86-101``)
+  and the traffic spawn draws (``traffic.py:53-208``), ``ResetDraws``;
 - ``observe``: the GNSS noise (``cursor.py:72``), standard normal (N, 2);
-- ``step_batch``: both of those for the auto-reset envs (``env.py:273``).
+- ``step_batch``: both of those for the auto-reset envs (``env.py:273``)
+  and the walkers' crossing coin (``traffic.py:361``); ``StepDraws``
+  bundles the three.
 
 Semantics traced to the reference:
 - route cursor advance + completion:  task_vehicle.py:103-138
@@ -44,7 +46,10 @@ from gail_carla_tpu_torch.sim.dynamics import (
     DEFAULT_VEHICLE, VehicleParams, VehicleState, step_vehicle,
 )
 from gail_carla_tpu_torch.sim.state import WorldState, tree_select
-from gail_carla_tpu_torch.sim.traffic import reset_traffic, step_traffic
+from gail_carla_tpu_torch.sim.traffic import (
+    TrafficResetDraws, draw_cross, draw_traffic_reset, reset_traffic,
+    step_traffic,
+)
 from gail_carla_tpu_torch.sim.transforms import norm2
 
 
@@ -72,20 +77,45 @@ class StepOutput:
 
 
 class ResetDraws(NamedTuple):
-    """Uniform [0, 1) draws of one reset: the restart coin and the
-    restart position, each (N,)."""
+    """The draws of one reset: the restart coin and the restart position,
+    uniform [0, 1) (N,), and the traffic spawn draws (drawn from the
+    generator when None)."""
 
     restart: torch.Tensor
     pos: torch.Tensor
+    traffic: Optional[TrafficResetDraws] = None
 
 
-def draw_reset(n: int, device, generator: Optional[torch.Generator]):
-    u = torch.rand((2, n), generator=generator, device=device)
-    return ResetDraws(u[0], u[1])
+class StepDraws(NamedTuple):
+    """Every draw of one ``step_batch``, as its keyword arguments."""
+
+    reset_draws: Optional[ResetDraws] = None
+    gnss_noise: Optional[torch.Tensor] = None
+    traffic_coin: Optional[torch.Tensor] = None
+
+
+def draw_reset(scene, cfg: EnvConfig, n: int,
+               generator: Optional[torch.Generator]) -> ResetDraws:
+    u = torch.rand((2, n), generator=generator, device=scene.device)
+    traffic = None
+    if cfg.n_npc_vehicles or cfg.n_npc_walkers:
+        traffic = draw_traffic_reset(scene, cfg, n, generator)
+    return ResetDraws(u[0], u[1], traffic)
 
 
 def draw_gnss(n: int, device, generator: Optional[torch.Generator]):
     return torch.randn((n, 2), generator=generator, device=device)
+
+
+def draw_step(scene, cfg: EnvConfig, n: int,
+              generator: Optional[torch.Generator]) -> StepDraws:
+    """Every draw of one ``step_batch`` of n envs, on the scene's device."""
+    return StepDraws(
+        reset_draws=draw_reset(scene, cfg, n, generator),
+        gnss_noise=draw_gnss(n, scene.device, generator),
+        traffic_coin=draw_cross(n, cfg.n_npc_walkers, scene.device,
+                                generator),
+    )
 
 
 def _check_cfg(cfg: EnvConfig) -> None:
@@ -111,7 +141,7 @@ def reset_env(
     N = route_ids.shape[0]
     rid = route_ids.to(torch.int32)
     if draws is None:
-        draws = draw_reset(N, dev, generator)
+        draws = draw_reset(scene, cfg, N, generator)
     n = scene.route_n[rid.long()]
     if resume_idx is None:
         resume_idx = torch.zeros(N, dtype=torch.int32, device=dev)
@@ -183,7 +213,7 @@ def reset_env(
         last_total=z,
         resume_idx=resume_idx.to(torch.int32),
         completed_last=completed_last,
-        traffic=reset_traffic(cfg, N, dev),
+        traffic=reset_traffic(scene, cfg, ego.xy, draws.traffic, generator),
     )
 
 
@@ -214,7 +244,7 @@ def observe(scene, cfg: EnvConfig, state: WorldState,
         stop_idx=torch.where(
             state.stop_completed, -1, state.stop_target
         ).to(torch.int32),
-        npc_pose=torch.cat([t.veh_xy, t.veh_yaw[..., None]], dim=-1),
+        npc_pose=torch.cat([t.veh.xy, t.veh.yaw[..., None]], dim=-1),
         walker_pose=torch.cat([t.walker_xy, t.walker_yaw[..., None]],
                               dim=-1),
     )
@@ -242,12 +272,14 @@ def step_batch(
     generator: Optional[torch.Generator] = None,
     reset_draws: Optional[ResetDraws] = None,
     gnss_noise: Optional[torch.Tensor] = None,
+    traffic_coin: Optional[torch.Tensor] = None,
     params: VehicleParams = DEFAULT_VEHICLE,
 ) -> Tuple[WorldState, StepOutput]:
     """One synchronous world tick for N envs. ``action`` (N, 2) =
     (steer, throttle) like carla_env.py:120-126, or (N, 3) with brake.
     Auto-resets on done and returns the new episode's observation with
-    the finished episode's reward/done/info."""
+    the finished episode's reward/done/info. The draws the step makes
+    (see ``StepDraws``) come from ``generator`` unless given."""
     _check_cfg(cfg)
     if cfg.endless_extension and scene.endless_next is not None:
         raise NotImplementedError("endless route chaining is not ported yet")
@@ -266,7 +298,8 @@ def step_batch(
     sim_time = step_count.to(torch.float32) * cfg.dt
     speed = torch.abs(ego.speed)
 
-    traffic = step_traffic(cfg, state.traffic)
+    traffic = step_traffic(scene, cfg, state.traffic, ego, sim_time,
+                           traffic_coin, generator)
 
     # core criteria (blocked / deviation / completion / timeout)
     blocked_elapsed = torch.where(
@@ -300,7 +333,7 @@ def step_batch(
     ) | obstacle_collision(scene, params, ego)
     hits = dynamic_collisions(traffic, params, ego)
     ev = dedup_events(
-        ego, sim_time, raw_static, hits, traffic.veh_yaw.shape[1],
+        ego, sim_time, raw_static, hits, traffic.veh_patrol.shape[1],
         state.col_xy, state.col_time, state.col_id,
     )
 

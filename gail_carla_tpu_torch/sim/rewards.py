@@ -14,27 +14,58 @@ from typing import NamedTuple
 import torch
 
 from gail_carla_tpu_torch.sim import signals
-from gail_carla_tpu_torch.sim.transforms import cast_angle
+from gail_carla_tpu_torch.sim.transforms import (
+    cast_angle, deg2rad_f32, norm2, vec_global_to_ref,
+)
 
 MAX_SPEED = 6.0  # valeo_action.py:22
 
 
-def hazard_vehicle(traffic, ego_xy, ego_yaw):
-    """lbc_hazard_vehicle (hazard_actor.py:16-29). Returns (found, dist);
-    only the zero-NPC case is ported."""
-    if traffic.veh_yaw.shape[1] != 0:
-        raise NotImplementedError("NPC vehicles are not ported yet")
-    z = torch.zeros_like(ego_yaw)
-    return torch.zeros_like(z, dtype=torch.bool), z
+def hazard_vehicle(traffic, ego_xy, ego_yaw,
+                   proximity_threshold: float = 9.5,
+                   distance_threshold: float = 15.0):
+    """lbc_hazard_vehicle (hazard_actor.py:16-29): the nearest
+    same-heading vehicle within a 45 deg cone ahead. Returns (found (N,),
+    dist (N,), 0 where none)."""
+    if traffic.veh_patrol.shape[1] == 0:
+        z = torch.zeros_like(ego_yaw)
+        return torch.zeros_like(z, dtype=torch.bool), z
+    veh = traffic.veh
+    local = vec_global_to_ref(veh.xy - ego_xy[:, None, :], ego_yaw[:, None])
+    dist = norm2(local)
+    same_heading = torch.abs(cast_angle(veh.yaw - ego_yaw[:, None])
+                             ) <= deg2rad_f32(150.0)
+    angle = torch.abs(torch.atan2(local[..., 1], local[..., 0]))
+    ahead = (angle < deg2rad_f32(45.0)) | (dist < 1e-3)
+    hit = (same_heading & ahead & (dist < proximity_threshold)
+           & (dist < distance_threshold))
+    return _nearest(hit, dist)
 
 
-def hazard_walker(traffic, ego_xy, ego_yaw):
-    """lbc_hazard_walker (hazard_actor.py:32-46). Returns (found, dist);
-    only the zero-walker case is ported."""
-    if traffic.walker_yaw.shape[1] != 0:
-        raise NotImplementedError("NPC walkers are not ported yet")
-    z = torch.zeros_like(ego_yaw)
-    return torch.zeros_like(z, dtype=torch.bool), z
+def hazard_walker(traffic, ego_xy, ego_yaw,
+                  proximity_threshold: float = 9.5):
+    """lbc_hazard_walker (hazard_actor.py:32-46): a cone that widens as
+    the walker comes closer. Returns (found (N,), dist (N,))."""
+    if traffic.walker_patrol.shape[1] == 0:
+        z = torch.zeros_like(ego_yaw)
+        return torch.zeros_like(z, dtype=torch.bool), z
+    local = vec_global_to_ref(traffic.walker_xy - ego_xy[:, None, :],
+                              ego_yaw[:, None])
+    dist = norm2(local)
+    # a tensor numerator: torch evaluates ``162.0 / t`` as
+    # ``reciprocal(t) * 162.0``, which rounds twice
+    degree = torch.full_like(dist, 162.0) / (torch.clamp(dist, 1.5, 10.5)
+                                             + 0.3)
+    angle = torch.abs(torch.rad2deg(torch.atan2(local[..., 1],
+                                                local[..., 0])))
+    hit = ((angle < degree) | (dist < 1e-3)) & (dist < proximity_threshold)
+    return _nearest(hit, dist)
+
+
+def _nearest(hit, dist):
+    found = hit.any(dim=1)
+    d = torch.where(hit, dist, 1e9).amin(dim=1)
+    return found, torch.where(found, d, 0.0)
 
 
 class ValeoInputs(NamedTuple):

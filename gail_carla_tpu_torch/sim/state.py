@@ -2,9 +2,8 @@
 
 Port of ``gail_carla_tpu/sim/state.py``. Every field carries a leading env
 axis. The JAX state also carries its PRNG key; here randomness comes from
-a ``torch.Generator`` (or injected draws) passed to reset and step. Only
-the empty ``TrafficState`` and ``AutopilotState`` that zero NPCs need are
-ported.
+a ``torch.Generator`` (or injected draws) passed to reset and step. The
+scenario-actor slots and the full-BEV history ring are not ported.
 """
 from __future__ import annotations
 
@@ -12,60 +11,58 @@ import dataclasses
 
 import torch
 
+from gail_carla_tpu_torch.agents.controllers import (
+    AutopilotState, make_autopilot,
+)
 from gail_carla_tpu_torch.sim.dynamics import VehicleState
-
-PID_WINDOW = 30  # controller.py:5
-
-
-@dataclasses.dataclass
-class PIDState:
-    buf: torch.Tensor    # (N, K, PID_WINDOW)
-    idx: torch.Tensor    # (N, K) i32
-    count: torch.Tensor  # (N, K) i32
-    prev: torch.Tensor   # (N, K) f32
-
-
-@dataclasses.dataclass
-class AutopilotState:
-    turn_pid: PIDState
-    speed_pid: PIDState
-    last_command: torch.Tensor  # (N, K) i32
 
 
 @dataclasses.dataclass
 class TrafficState:
-    """Background actors, K vehicles and W walkers per env. Only K = W = 0
-    is ported; the tensors then have a zero-size second axis."""
+    """Background actors, K vehicles and W walkers per env (K = W = 0
+    disables traffic; the tensors then have a zero-size second axis).
+    Vehicles drive lane-graph patrols with the LocalPlanner; walkers
+    follow a patrol polyline at a signed lateral offset (the pavement
+    band), and a crossing moves the offset to the other side."""
 
-    veh_xy: torch.Tensor           # (N, K, 2)
-    veh_yaw: torch.Tensor          # (N, K)
-    veh_ap: AutopilotState
+    veh: VehicleState              # (N, K, ...) vehicle states
+    veh_patrol: torch.Tensor       # (N, K) i32 patrol route id
+    veh_head: torch.Tensor         # (N, K) i32 patrol cursor
+    veh_ap: AutopilotState         # (N, K) LocalPlanner controller state
+    veh_target_speed: torch.Tensor  # (N, K) f32
     walker_xy: torch.Tensor        # (N, W, 2)
     walker_yaw: torch.Tensor       # (N, W)
+    walker_patrol: torch.Tensor    # (N, W) i32 polyline id
+    walker_head: torch.Tensor      # (N, W) i32 polyline cursor
+    walker_off: torch.Tensor       # (N, W) f32 current signed offset
+    walker_off_t: torch.Tensor     # (N, W) f32 target offset
+    walker_speed: torch.Tensor     # (N, W) 1-2 m/s
 
 
-def _empty_pid(n: int, device) -> PIDState:
-    return PIDState(
-        buf=torch.zeros((n, 0, PID_WINDOW), device=device),
-        idx=torch.zeros((n, 0), dtype=torch.int32, device=device),
-        count=torch.zeros((n, 0), dtype=torch.int32, device=device),
-        prev=torch.zeros((n, 0), device=device),
-    )
-
-
-def make_empty_traffic(n_envs: int, device) -> TrafficState:
-    z = torch.zeros((n_envs, 0), device=device)
+def make_empty_traffic(n_envs: int, n_veh: int, n_walkers: int,
+                       device) -> TrafficState:
+    """Traffic tensors at their initial values: every vehicle parked at
+    the origin with a fresh controller, every walker at the origin."""
+    k = (n_envs, n_veh)
+    w = (n_envs, n_walkers)
+    zi = dict(dtype=torch.int32, device=device)
     return TrafficState(
-        veh_xy=torch.zeros((n_envs, 0, 2), device=device),
-        veh_yaw=z,
-        veh_ap=AutopilotState(
-            turn_pid=_empty_pid(n_envs, device),
-            speed_pid=_empty_pid(n_envs, device),
-            last_command=torch.zeros((n_envs, 0), dtype=torch.int32,
-                                     device=device),
+        veh=VehicleState(
+            xy=torch.zeros(k + (2,), device=device),
+            yaw=torch.zeros(k, device=device),
+            speed=torch.zeros(k, device=device),
         ),
-        walker_xy=torch.zeros((n_envs, 0, 2), device=device),
-        walker_yaw=z,
+        veh_patrol=torch.zeros(k, **zi),
+        veh_head=torch.zeros(k, **zi),
+        veh_ap=make_autopilot(k, device),
+        veh_target_speed=torch.full(k, 5.5, device=device),
+        walker_xy=torch.zeros(w + (2,), device=device),
+        walker_yaw=torch.zeros(w, device=device),
+        walker_patrol=torch.zeros(w, **zi),
+        walker_head=torch.zeros(w, **zi),
+        walker_off=torch.zeros(w, device=device),
+        walker_off_t=torch.zeros(w, device=device),
+        walker_speed=torch.ones(w, device=device),
     )
 
 
@@ -123,9 +120,10 @@ class WorldState:
 
 def tree_select(cond: torch.Tensor, a, b):
     """``where(cond, a, b)`` over every tensor of two states of the same
-    dataclass structure; ``cond`` (N,) broadcasts over trailing axes."""
+    dataclass structure; ``cond`` ((N,) or (N, K)) broadcasts over the
+    trailing axes."""
     if isinstance(a, torch.Tensor):
-        c = cond.reshape(cond.shape + (1,) * (a.dim() - 1))
+        c = cond.reshape(cond.shape + (1,) * (a.dim() - cond.dim()))
         return torch.where(c, a, b)
     return type(a)(**{
         f.name: tree_select(cond, getattr(a, f.name), getattr(b, f.name))

@@ -118,3 +118,46 @@ def test_converter_layout_roundtrip():
     np.testing.assert_array_equal(sd["body.0.weight"].numpy(), d0.T)
     net = init_policy(cfg, (3, 64, 64), seed=0, device="cpu")
     assert set(net.state_dict()) == set(sd)
+
+
+def test_bev6_policy_matches_flax():
+    """The 6-channel policy (``obs_mode="bev6"``) at full width: the extra
+    channels are normalised by 0.5/0.25, the first conv takes 6 inputs,
+    and ``Dense_0`` still consumes the NHWC flatten (25,613 = 10*10*256 +
+    5 + 8 features at 192 px). Values, means and log-probs within 1e-5
+    relative, as for the 3-channel policy."""
+    import jax
+    import jax.numpy as jnp
+    from gail_carla_tpu.models.policy import act as jax_act
+    from gail_carla_tpu.models.policy import init_policy as jax_init
+
+    cfg = ModelConfig(dtype="float32")
+    shape = (6, 192, 192)
+    net, params = jax_init(jax.random.PRNGKey(4), cfg, shape)
+    p = params["params"]
+    assert p["ObsEncoder_0"]["Conv_0"]["kernel"].shape == (4, 4, 6, 32)
+    assert p["Dense_0"]["kernel"].shape == (25613, 512)
+    numpy_p = init_flax_params(cfg, shape, seed=0)["params"]
+    assert jax.tree.map(np.shape, numpy_p) == jax.tree.map(np.shape, p)
+
+    rng = np.random.default_rng(6)
+    obs, metrics = _inputs(2, 192, 3)
+    # the signal channel's values, and 0/1 actor masks
+    extra = np.stack([
+        rng.choice([0.0, 80.0, 170.0, 255.0], (2, 192, 192)) / 255.0,
+        rng.uniform(0, 1, (2, 192, 192)) < 0.1,
+        rng.uniform(0, 1, (2, 192, 192)) < 0.05,
+    ], axis=1).astype(np.float32)
+    obs = np.concatenate([obs, extra], axis=1)
+    key = jax.random.PRNGKey(8)
+    v, a, lp = jax_act(net, params, jnp.asarray(obs), jnp.asarray(metrics),
+                       key)
+    noise = np.array(jax.random.normal(key, (2, 2)))
+    port = policy_from_flax(jax.tree.map(np.asarray, params), cfg, shape,
+                            device="cpu")
+    pv, pa, plp = port_policy.act(port, torch.from_numpy(obs),
+                                  torch.from_numpy(metrics),
+                                  noise=torch.from_numpy(noise))
+    np.testing.assert_allclose(pv.numpy(), np.asarray(v), **TOL)
+    np.testing.assert_allclose(pa.numpy(), np.asarray(a), **TOL)
+    np.testing.assert_allclose(plp.numpy(), np.asarray(lp), **TOL)

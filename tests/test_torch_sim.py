@@ -188,3 +188,71 @@ def test_step_batch_200_steps_matches_jax(scenes, reward_mode,
         n_done += int(pout.done.sum())
     # episodes ended and auto-reset along the way
     assert n_done >= 4
+
+
+def test_local_planner_act_matches_jax(scenes):
+    """The NPCs' LocalPlanner on the patrol tables, (4 envs, 3 vehicles)
+    at once, for 40 calls: the PIDs' 30-sample ring buffer wraps, and the
+    20-point window near a row's end is shifted back into the row as
+    ``dynamic_slice`` shifts it. Poses are drawn anew for every call (no
+    closed loop), so states and actions agree to 1e-5."""
+    import jax
+    import jax.numpy as jnp
+    from gail_carla_tpu.agents.autopilot import (
+        local_planner_act as jax_act,
+    )
+    from gail_carla_tpu.agents.controllers import make_autopilot
+    from gail_carla_tpu.sim.dynamics import VehicleState as JaxVehicle
+
+    from gail_carla_tpu_torch.agents.autopilot import local_planner_act
+    from gail_carla_tpu_torch.agents.controllers import (
+        make_autopilot as port_make_autopilot,
+    )
+
+    port_scene, jax_scene = scenes
+    n, k = 4, 3
+    rng = np.random.default_rng(5)
+    pxy = port_scene.patrol_xy.numpy()
+    pn = port_scene.patrol_n.numpy()
+    L = pxy.shape[1]
+    pat = rng.integers(0, pxy.shape[0], (n, k)).astype(np.int32)
+    head = (rng.uniform(0, 1, (n, k)) * (pn[pat] - 1)).astype(np.int32)
+    head[0] = [L - 1, L - 5, pn[pat[0, 2]] - 2]     # windows past the end
+    speed = rng.uniform(4.5, 6.5, (n, k)).astype(np.float32)
+
+    ap0 = make_autopilot()
+    jap = jax.tree.map(lambda a: jnp.broadcast_to(a, (n * k,) + a.shape),
+                       ap0)
+    pap = port_make_autopilot((n, k), "cpu")
+    step = jax.jit(jax.vmap(
+        lambda a, xy, yaw, v, p, h, ts: jax_act(
+            jax_scene.patrol_xy, jax_scene.patrol_cmd, a,
+            JaxVehicle(xy=xy, yaw=yaw, speed=v), p, h, ts)))
+    for t in range(40):
+        h = np.minimum(head + t // 4, L - 1).astype(np.int32)
+        xy = (pxy[pat, np.minimum(h, pn[pat] - 1)]
+              + rng.normal(0.0, 3.0, (n, k, 2))).astype(np.float32)
+        yaw = rng.uniform(-np.pi, np.pi, (n, k)).astype(np.float32)
+        v = rng.uniform(0.0, 7.0, (n, k)).astype(np.float32)
+        jap, jaction = step(jap, xy.reshape(-1, 2), yaw.reshape(-1),
+                            v.reshape(-1), pat.reshape(-1), h.reshape(-1),
+                            speed.reshape(-1))
+        pap, paction = local_planner_act(
+            port_scene.patrol_xy, port_scene.patrol_cmd, pap, _t(xy),
+            _t(yaw), _t(v), _t(pat), _t(h), _t(speed))
+        np.testing.assert_allclose(
+            paction.numpy().reshape(-1, 2), np.asarray(jaction),
+            rtol=1e-5, atol=1e-5, err_msg=f"action at call {t}")
+        np.testing.assert_array_equal(
+            pap.last_command.numpy().reshape(-1),
+            np.asarray(jap.last_command), err_msg=f"command at call {t}")
+        for name in ("turn_pid", "speed_pid"):
+            jp, pp = getattr(jap, name), getattr(pap, name)
+            for f in ("idx", "count"):
+                np.testing.assert_array_equal(
+                    getattr(pp, f).numpy().reshape(-1),
+                    np.asarray(getattr(jp, f)), err_msg=f"{name}.{f}")
+            np.testing.assert_allclose(
+                pp.buf.numpy().reshape(n * k, -1), np.asarray(jp.buf),
+                rtol=1e-5, atol=1e-5, err_msg=f"{name}.buf at call {t}")
+    assert int(pap.turn_pid.count.min()) == 30      # the window is full

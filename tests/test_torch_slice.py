@@ -141,3 +141,113 @@ def test_evaluate_policy_matches_jax(setup):
     for k in want:
         _close(got[k], want[k], k)
     assert bool(got["done"].all())
+
+
+# the bev6 slice: 6-channel observation at 128 px (a view wide enough to
+# see the NPCs), 12 NPC vehicles and 12 walkers per env, the default env
+# randomness on (every draw injected), 15-step episodes
+BEV6_ENV = dataclasses.replace(PRESET["env"], obs_mode="bev6",
+                               bev_width=128, n_npc_vehicles=12,
+                               n_npc_walkers=12, max_time=1.5)
+
+
+def _jax_rollout_draws(rng0, dones, cfg, n_patrols):
+    """Per step of a JAX rollout, the port ``StepDraws`` of every draw the
+    JAX envs made, from the reset state's keys and the steps' done flags."""
+    import jax
+    import jax.numpy as jnp
+    from test_torch_traffic import jax_step_draws
+
+    def next_rng(r, d):
+        rng_next, k_reset, _ = jax.random.split(r, 3)
+        fresh = jax.random.split(k_reset, 4)[0]
+        return jax.random.split(jnp.where(d, fresh, rng_next))[0]
+
+    out, r = [], rng0
+    for d in dones:
+        d = jnp.asarray(d)
+        out.append(jax_step_draws(r, d, cfg, n_patrols))
+        r = jax.vmap(next_rng)(r, d)
+    return out
+
+
+def test_bev6_rollout_with_traffic_matches_jax():
+    """``collect_rollout`` with ``obs_mode="bev6"`` and NPC traffic, port
+    against JAX with converted params and every draw injected. The
+    comparison runs up to the first step whose JAX observation, as the
+    jitted JAX rollout rendered and stored it, differs from the port's:
+    XLA fuses a + b*c into one multiply-add inside the rollout, which
+    eventually flips a single pixel."""
+    import jax
+    import jax.numpy as jnp
+    from gail_carla_tpu.algo.buffers import unpack_bev_obs
+    from gail_carla_tpu.algo.rollout import collect_rollout as jax_collect
+    from gail_carla_tpu.models.policy import init_policy as jax_init
+    from gail_carla_tpu.scene.scene import (
+        make_benchmark_scene as make_jax_scene,
+    )
+    from gail_carla_tpu.sim.env import reset_batch as jax_reset
+    from test_torch_traffic import compare_poses, jax_batch_reset_draws
+
+    from gail_carla_tpu_torch.ops.bev6 import render_bev6_batch
+
+    cfg = BEV6_ENV
+    w = cfg.bev_width
+    net, params = jax_init(jax.random.PRNGKey(3), PRESET["model"], (6, w, w))
+    port_net = policy_from_flax(jax.tree.map(np.asarray, params),
+                                PRESET["model"], (6, w, w), device="cpu")
+    port_scene = make_benchmark_scene(**PRESET["scene"], device="cpu")
+    jax_scene = make_jax_scene(**PRESET["scene"])
+    n_patrols = port_scene.patrol_xy.shape[0]
+    rid = np.array([0, 1, 0, 1], np.int32)
+    n, n_steps = len(rid), 40
+    key = jax.random.PRNGKey(9)
+    st, met, ren = jax_reset(jax_scene, cfg, key, jnp.asarray(rid))
+    # stored observations: the first step whose JAX observation (rendered
+    # inside the jitted rollout) differs from the port's ends the window
+    out = jax_collect(jax_scene, cfg, net, params, st, met, ren, key,
+                      n_steps, store_obs=True)
+    ro = out[3]
+    jax_obs = np.asarray(jax.vmap(lambda o: unpack_bev_obs(cfg, o))(ro.obs))
+    noise = np.stack([np.asarray(jax.random.normal(k, (n, 2)))
+                      for k in jax.random.split(key, n_steps)])
+    dones = np.asarray(ro.masks)[1:] == 0.0
+    env_draws = _jax_rollout_draws(st.rng, dones, cfg, n_patrols)
+
+    draws, gnss = jax_batch_reset_draws(key, n, cfg, n_patrols)
+    pst, pmet, pren = reset_batch(port_scene, cfg, torch.from_numpy(rid),
+                                  draws=draws, gnss_noise=gnss)
+    pout = collect_rollout(port_scene, cfg, port_net, pst, pmet, pren, None,
+                           n_steps, action_noise=torch.from_numpy(noise),
+                           env_draws=env_draws)
+    pro = pout[3]
+
+    flip = n_steps
+    seen = torch.zeros(6, dtype=torch.bool)
+    for t in range(n_steps):
+        img = render_bev6_batch(port_scene, cfg, _port_render(pro.render, t))
+        if not np.array_equal(img.numpy(), jax_obs[t]):
+            flip = t
+            break
+        seen |= img.amax(dim=(0, 2, 3)) > 0
+    # the first differing observation is at step 37 of 40: one lane
+    # pixel that XLA computes with a fused multiply-add inside the jitted
+    # rollout (the JAX renderer called alone gives the port's pixels)
+    assert flip >= 30, flip
+
+    rows = slice(0, flip)
+    for name in ("actions", "logp", "values", "env_rewards"):
+        _close(getattr(pro, name)[rows], getattr(ro, name)[rows], name)
+    rows = slice(0, flip + 1)
+    for name in ("metrics", "masks"):
+        _close(getattr(pro, name)[rows], getattr(ro, name)[rows], name)
+    for name in ("xy", "yaw", "route_id", "head", "step", "stop_idx"):
+        _close(getattr(pro.render, name)[rows],
+               getattr(ro.render, name)[rows], f"render.{name}")
+    for name in ("npc_pose", "walker_pose"):
+        compare_poses(getattr(pro.render, name)[rows],
+                      np.asarray(getattr(ro.render, name))[rows],
+                      f"render.{name}")
+    assert int((1.0 - pro.masks[1:][:flip]).sum()) >= 4
+    # the policy saw NPC vehicles and walkers before the window ended
+    assert bool(seen[4]) and bool(seen[5])
