@@ -19,8 +19,21 @@ evaluation on the held-out route and a rollout.
   walkers per env (NoCrash "regular" Town01 densities), kernel
   ``bev6_raster`` (the TPU kernel ``ops/bev6_pallas.py``).
 
-It prints one progress line per phase, a per-step time breakdown of each
-path, a JSON line of kernel measurements, the card's name and power
+Each kernel is checked against its plain version on the same render
+states of the rollout's 256 envs, at W=192 and W=100, with envs placed on
+the cell grid's corners and with boundary edges, stop lines, stop signs
+and actors on tile-corner pixels (``ops/bev6.py::place_in_view`` with
+``tiles``); 0 values may differ. Each kernel is then timed alone
+(CUDA-graph device time) and as the render a rollout step calls (its
+PyTorch prologue and checks included), beside its plain version and its
+bound: the larger of the bytes it must move over the memory rate and the
+operations of the pixel-item pairs within reach over the float32 peak
+(``pair_counts``). The outputs of its first and last launch on the timed
+inputs are held against the plain version's too.
+
+It prints one progress line per phase (with ``ptxas``'s registers,
+shared memory and spills of each build), a per-step time breakdown of
+each path, a JSON line of kernel measurements, the card's name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``. Any
 failure raises and exits non-zero; without a CUDA device it exits
 non-zero before printing a result.
@@ -48,7 +61,9 @@ from gail_carla_tpu_torch.convert import init_policy
 from gail_carla_tpu_torch.models import policy as policy_mod
 from gail_carla_tpu_torch.ops import bev as bev_plain
 from gail_carla_tpu_torch.ops import bev6 as bev6_plain
-from gail_carla_tpu_torch.ops import bev6_cuda, bev_cuda
+from gail_carla_tpu_torch.ops import bev6_cuda, bev_cuda, bev_tiles
+from gail_carla_tpu_torch.ops.bev import ROUTE_HALF_W
+from gail_carla_tpu_torch.ops.bev_full import TL_LINE_HALF_W
 from gail_carla_tpu_torch.scene.scene import make_benchmark_scene
 from gail_carla_tpu_torch.sim.env import (
     RenderState, draw_reset, draw_step, reset_batch, step_batch,
@@ -117,46 +132,163 @@ def route_poses(scene, n: int, seed: int):
     )
 
 
-def bound_ms(flops: float, tensors, out_bytes: int):
-    """Least time the card could take for the same work: the larger of
-    ``flops`` over the float32 peak and the bytes moved (each input tensor
-    read once, ``out_bytes`` written once) over the memory rate.
-    Returns (ms, "operations" or "bytes")."""
+def graph_ms(fn, iters: int = 20, reps: int = 5) -> float:
+    """Mean milliseconds of ``fn()`` on the card, replayed from a CUDA
+    graph of ``iters`` calls: the device's time, without the host's launch
+    gaps between calls."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (reps * iters)
+
+
+# Operations of the plain version per pixel and item it weighs (ops/bev.py,
+# ops/bev6.py; a clamp counts 2, |.| is an operand modifier): a boundary
+# edge's distance and cross (18), tie key (3) and min; a route capsule's
+# distance (16) and min; a lane capsule's or stop line's distance, compare,
+# select and max; a box's 2 subtractions, lx (3), ly (4), 2 abs, 2
+# compares, and, any.
+PAIR_OPS = {"road": 22, "route": 17, "lane": 19, "light": 19, "boxes": 15}
+# per pixel: its world coordinates (8), and one op per channel value
+PIXEL_OPS = 8
+
+
+def pair_counts(cfg: EnvConfig, inp, tables, dmax: float):
+    """{table: (pairs within reach, pairs weighed without culling)} of one
+    render of these inputs (for bev6, ``tables`` holds what the kernel
+    reads of the lights and boxes; None for bev): the pixel-item pairs
+    whose distance is within the item's reach (ops/bev_tiles.py's reaches,
+    no pad), the only pairs that can change a pixel, and the pairs of every
+    live item (every box row) with every pixel."""
+    six = tables is not None
+    base = inp.base if six else inp
+    n, w = base.pose.shape[0], cfg.bev_width
+
+    def live(count, m):
+        return (torch.arange(m, device=count.device)[None, :]
+                < count.to(torch.int64)[:, None])
+
+    def full(segs, r):
+        return torch.full(segs.shape[:2], r, device=segs.device)
+
+    items = {
+        "road": (base.bnd, live(base.counts[:, 0], base.bnd.shape[1]),
+                 full(base.bnd, bev_tiles.road_reach(dmax))),
+        "route": (base.route, full(base.route, True),
+                  full(base.route, ROUTE_HALF_W)),
+        "lane": (base.lane, live(base.counts[:, 1], base.lane.shape[1]),
+                 base.lane_w.abs()),
+    }
+    if six:
+        tl, boxes = tables.tl, tables.boxes
+        items["light"] = (tl, live(tables.n_tl, tl.shape[1]),
+                          full(tl, TL_LINE_HALF_W))
+        items["boxes"] = (boxes[..., [0, 1, 0, 1]],
+                          bev_tiles.box_live(boxes),
+                          bev_tiles.box_reach(boxes))
+    near = dict.fromkeys(items, 0)
+    for lo in range(0, n, 8):
+        sl = slice(lo, min(lo + 8, n))
+        pose = base.pose[sl]
+        px = bev_plain.pixel_world_coords(cfg, pose[:, :2], pose[:, 2],
+                                          pose[:, 3])
+        for name, (segs, ok, r) in items.items():
+            d2 = bev_tiles.seg_dist2(px, segs[sl])
+            r2 = (r[sl] * r[sl])[:, None, :]
+            near[name] += int((ok[sl][:, None, :] & (d2 <= r2)).sum())
+    every = {name: int(ok.sum()) * w * w for name, (_, ok, _) in
+             items.items()}
+    if six:
+        every["boxes"] = boxes.shape[0] * boxes.shape[1] * w * w
+    return {name: (near[name], every[name]) for name in items}
+
+
+def bound_ms(pairs, n_pix: int, channels: int, tensors, out_bytes: int):
+    """Least time the card could take for one render: the larger of the
+    operations these inputs need (the pixel-item pairs within reach, at
+    ``PAIR_OPS`` each, plus ``PIXEL_OPS`` and one op per channel value per
+    pixel) over the float32 peak, and the bytes moved (each input tensor
+    read once, ``out_bytes`` written once) over the memory rate. Returns
+    (ms, "operations" or "bytes", ms of the operations of all pairs)."""
+    per_pixel = n_pix * (PIXEL_OPS + channels)
+    ops = per_pixel + sum(PAIR_OPS[k] * v[0] for k, v in pairs.items())
+    ops_all = per_pixel + sum(PAIR_OPS[k] * v[1] for k, v in pairs.items())
     nbytes = sum(t.numel() * t.element_size() for t in tensors) + out_bytes
-    t_ops = flops / PEAK_F32_FLOPS * 1e3
+    t_ops = ops / PEAK_F32_FLOPS * 1e3
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_all = ops_all / PEAK_F32_FLOPS * 1e3
     if t_ops >= t_bytes:
-        return t_ops, "operations"
-    return t_bytes, "bytes"
+        return t_ops, "operations", t_all
+    return t_bytes, "bytes", t_all
 
 
-def bev_bound_ms(inp: bev_plain.BevInputs, w: int):
-    """``bound_ms`` of one render of these inputs, counting the flops this
-    data needs: live segments only, ~12 per pixel and segment."""
-    counts = inp.counts.to(torch.int64)
-    segs = int(counts.sum()) + inp.route.shape[0] * inp.route.shape[1]
-    return bound_ms(12.0 * w * w * segs, (
-        inp.pose, inp.counts, inp.bnd, inp.lane, inp.lane_val, inp.lane_w,
-        inp.route), inp.pose.shape[0] * 3 * w * w * 4)
+def kernel_tensors(scene, ren, prologue, six: bool):
+    """The tensors a kernel reads: the render state's, the prologue's
+    (cos, sin and, for bev6, the light values) and the scene tables."""
+    tensors = [ren.xy, ren.route_id, ren.head, *prologue,
+               scene.cell_grid_lo, scene.cell_bnd, scene.cell_bnd_n,
+               scene.cell_lane, scene.cell_lane_val, scene.cell_lane_w,
+               scene.cell_lane_n, scene.route_xy]
+    if six:
+        tensors += [ren.stop_idx, ren.npc_pose, ren.walker_pose,
+                    scene.cell_tl, scene.cell_tl_idx, scene.cell_tl_n,
+                    scene.ss_center, scene.ss_extent]
+    return tensors
+
+
+def tile_states(scene, cfg: EnvConfig, ren: RenderState, envs, seed: int):
+    """``ren`` with the envs ``envs`` and all their actors placed on tile
+    corners for this width (``ops/bev6.py::place_in_view``)."""
+    return bev6_plain.place_in_view(
+        scene, ren, envs, np.random.default_rng(seed),
+        ren.npc_pose.shape[1], ren.walker_pose.shape[1], tiles=cfg)
+
+
+def compare(name: str, got: torch.Tensor, want: torch.Tensor,
+            what: str) -> float:
+    """Raises unless the kernel output ``got`` equals the plain version's
+    ``want`` at every value; prints and returns the max abs difference."""
+    torch.cuda.synchronize()
+    if got.shape != want.shape:
+        raise AssertionError(f"{name} output shape {tuple(got.shape)}, "
+                             f"plain {tuple(want.shape)}")
+    diff = int((got != want).sum())
+    err = float((got - want).abs().max())
+    lit = [int((want[:, c] != 0).sum()) for c in range(want.shape[1])]
+    print(f"  {name} {what}: {diff} of {got.numel()} values differ, max "
+          f"abs err {err}, nonzero values per channel {lit}", flush=True)
+    if diff != 0:
+        raise AssertionError(f"{name} and its plain version differ at "
+                             f"{diff} values ({what})")
+    return err
 
 
 def check_kernel(scene, cfg: EnvConfig, n: int, seed: int):
-    """Kernel vs plain version on the same fetched inputs; raises unless
-    every value is equal, and returns the max abs difference."""
-    inp = bev_plain.bev_inputs(scene, route_poses(scene, n, seed))
-    a = bev_cuda.render_bev_cuda(cfg, inp, scene.bnd_dmax)
-    b = bev_plain.render_bev_plain(cfg, inp, scene.bnd_dmax)
-    torch.cuda.synchronize()
-    if a.shape != (n, 3, cfg.bev_width, cfg.bev_width):
-        raise AssertionError(f"kernel output shape {tuple(a.shape)}")
-    diff = int((a != b).sum())
-    err = float((a - b).abs().max())
-    print(f"  bev_raster W={cfg.bev_width} n={n}: {diff} of {a.numel()} "
-          f"values differ, max abs err {err}", flush=True)
-    if diff != 0:
-        raise AssertionError(f"kernel and plain version differ at {diff} "
-                             f"values (W={cfg.bev_width})")
-    return err
+    """Kernel vs plain version on the same render states: ``n`` route
+    poses, the first half placed on tile corners. Raises unless every value
+    is equal; returns the max abs difference."""
+    ren = tile_states(scene, cfg, route_poses(scene, n, seed),
+                      range(n // 2), seed)
+    return compare("bev_raster",
+                   bev_cuda.render_bev_cuda_batch(scene, cfg, ren),
+                   bev_plain.render_bev_batch(scene, cfg, ren),
+                   f"W={cfg.bev_width} n={n} ({n // 2} on tile corners)")
 
 
 def to_device(x, dev):
@@ -183,74 +315,74 @@ def bev6_states(scene, cfg: EnvConfig, n: int, seed: int):
     net = init_policy(ModelConfig(), (6, cfg.bev_width, cfg.bev_width),
                       seed=seed, device=dev)
     _, _, ren, _, _ = collect_rollout(scene, cfg, net, st, met, ren, gen, 10)
-    return bev6_plain.place_in_view(scene, ren, 32,
-                                    np.random.default_rng(seed),
-                                    (6.0, 20.0, 12.0), 4, 6)
-
-
-def boxes_in_view(cfg: EnvConfig, inp: bev6_plain.Bev6Inputs) -> int:
-    """How many box rows of these inputs can draw a pixel: those with
-    non-negative half extents whose bounding circle meets their env's
-    view rectangle (forward -ev_to_bottom .. W - ev_to_bottom px, W/2 px
-    to each side, over ``pixels_per_meter``)."""
-    pose, b = inp.base.pose, inp.boxes
-    ppm, w = cfg.pixels_per_meter, cfg.bev_width
-    dx = b[..., 0] - pose[:, None, 0]
-    dy = b[..., 1] - pose[:, None, 1]
-    c, s = pose[:, None, 2], pose[:, None, 3]
-    fwd = dx * c + dy * s
-    side = (-dx * s + dy * c).abs()
-    f_lo = -cfg.pixels_ev_to_bottom / ppm
-    f_hi = (w - cfg.pixels_ev_to_bottom) / ppm
-    df = torch.clamp(torch.maximum(f_lo - fwd, fwd - f_hi), min=0.0)
-    ds = torch.clamp(side - 0.5 * w / ppm, min=0.0)
-    hl, hw = b[..., 4], b[..., 5]
-    live = (hl >= 0.0) & (hw >= 0.0) & (df * df + ds * ds
-                                        <= hl * hl + hw * hw)
-    return int(live.sum())
-
-
-def bev6_bound_ms(cfg: EnvConfig, inp: bev6_plain.Bev6Inputs):
-    """``bound_ms`` of one 6-channel render of these inputs, counting the
-    flops this data needs: live segments only, ~12 per pixel and segment;
-    10 per pixel and box (2 subtractions, 4 multiplies, 2 adds, 2
-    compares) for the boxes that can reach the view; and ~20 per box and
-    env to cull the rest. Returns (ms, bound_by, boxes in view)."""
-    b = inp.base
-    n, w = b.pose.shape[0], cfg.bev_width
-    segs = int(inp.counts.to(torch.int64).sum()) + n * b.route.shape[1]
-    in_view = boxes_in_view(cfg, inp)
-    flops = (w * w * (12.0 * segs + 10.0 * in_view)
-             + 20.0 * inp.boxes.shape[0] * inp.boxes.shape[1])
-    return bound_ms(flops, (
-        b.pose, inp.counts, b.bnd, b.lane, b.lane_val, b.lane_w, b.route,
-        inp.tl, inp.tl_val, inp.boxes), n * 6 * w * w * 4) + (in_view,)
+    return bev6_plain.place_in_view(scene, ren, range(32),
+                                    np.random.default_rng(seed), 4, 6,
+                                    view=(6.0, 20.0, 12.0))
 
 
 def check_kernel6(scene, cfg: EnvConfig, ren: RenderState):
-    """bev6 kernel vs plain version on the same fetched inputs; raises
+    """bev6 kernel vs plain version on the same render states; raises
     unless every value is equal and the signal, vehicle and walker
     channels are drawn, and returns the max abs difference."""
-    inp = bev6_plain.bev6_inputs(scene, cfg, ren)
-    a = bev6_cuda.render_bev6_cuda(cfg, inp, scene.bnd_dmax)
-    b = bev6_plain.render_bev6_plain(cfg, inp, scene.bnd_dmax)
-    torch.cuda.synchronize()
-    n, w = ren.yaw.shape[0], cfg.bev_width
-    if a.shape != (n, 6, w, w):
-        raise AssertionError(f"kernel output shape {tuple(a.shape)}")
-    diff = int((a != b).sum())
-    err = float((a - b).abs().max())
-    lit = [int((a[:, c] > 0).sum()) for c in range(6)]
-    print(f"  bev6_raster W={w} n={n}: {diff} of {a.numel()} values "
-          f"differ, max abs err {err}, nonzero px per channel {lit}",
-          flush=True)
-    if diff != 0:
-        raise AssertionError(f"bev6 kernel and plain version differ at "
-                             f"{diff} values (W={w})")
-    if min(lit[3:]) == 0:
+    b = bev6_plain.render_bev6_batch(scene, cfg, ren)
+    err = compare("bev6_raster",
+                  bev6_cuda.render_bev6_cuda_batch(scene, cfg, ren), b,
+                  f"W={cfg.bev_width} n={ren.yaw.shape[0]}")
+    if min(int((b[:, c] != 0).sum()) for c in range(3, 6)) == 0:
         raise AssertionError("a signal/vehicle/walker channel is empty: "
                              "the comparison would prove nothing")
     return err
+
+
+def time_kernel(name: str, scene, cfg: EnvConfig, ren, inp, tables,
+                prologue, kernel, render, plain):
+    """Times the kernel alone (CUDA-graph device time, and eager), the
+    render with its fetch and prologue (eager, as a rollout step pays it),
+    the plain version and a bare write of an output of the same size, and
+    states the bound; prints them with the items each tile keeps. The
+    outputs of the kernel's first launch and of a launch after all the
+    timed ones are held against the plain version's. Returns (max abs
+    difference, (ms, plain ms, bound ms, bound_by))."""
+    w = cfg.bev_width
+    n = ren.xy.shape[0]
+    six = tables is not None
+    channels = 6 if six else 3
+    dmax = scene.bnd_dmax
+    first = kernel()
+    k_ms = graph_ms(kernel)
+    k_eager = cuda_ms(kernel, iters=50)
+    r_ms = cuda_ms(render, iters=50)
+    r_graph = graph_ms(render)
+    p_ms = cuda_ms(plain, iters=3, warmup=1)
+    out = torch.empty((n, channels, w, w), device=ren.xy.device)
+    z_ms = graph_ms(out.zero_)
+    want = plain()
+    err = max(compare(name, first, want, f"{n} envs x {w} px, timed "
+                      f"inputs, first launch"),
+              compare(name, kernel(), want, f"{n} envs x {w} px, timed "
+                      f"inputs, launch after the timed ones"))
+    pairs = pair_counts(cfg, inp, tables, dmax)
+    b_ms, b_by, all_ms = bound_ms(
+        pairs, n * w * w, channels,
+        kernel_tensors(scene, ren, prologue, six), n * channels * w * w * 4)
+    keep = (bev_tiles.bev6_keep(cfg, inp, tables, dmax) if six
+            else bev_tiles.bev_keep(cfg, inp, dmax))
+    kept = bev_tiles.mean_kept(keep)
+    base = inp.base if six else inp
+    print(f"  {name} {n} envs x {w} px: kernel {k_ms:.4f} ms (graph), "
+          f"{k_eager:.4f} ms (eager); render with fetch {r_ms:.4f} ms "
+          f"(eager), {r_graph:.4f} ms (graph); plain {p_ms:.4f} ms; bound "
+          f"{b_ms:.4f} ms ({b_by}), operations of all pairs {all_ms:.4f} "
+          f"ms; writing the output alone (zero_) {z_ms:.4f} ms", flush=True)
+    print(f"  {name} pixel-item pairs (within reach, all): "
+          + ", ".join(f"{k} {v[0]} / {v[1]}" for k, v in pairs.items()),
+          flush=True)
+    live = base.counts.float().mean(0)
+    print(f"  {name} mean items kept per tile: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in kept.items())
+          + f"; mean live per env: road {float(live[0]):.3f}, lane "
+          f"{float(live[1]):.3f}, route {base.route.shape[1]}", flush=True)
+    return err, (k_ms, p_ms, b_ms, b_by)
 
 
 def max_abs_diff(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -426,7 +558,13 @@ def main() -> int:
     progress("device", t)
 
     t = time.time()
-    cuda_build.build_all(KERNEL_SOURCES)
+    logs = {}
+    cuda_build.build_all(KERNEL_SOURCES, logs)
+    for src in KERNEL_SOURCES:
+        lines = [ln.strip() for ln in logs.get(src, "").splitlines()
+                 if "registers" in ln or "spill" in ln]
+        print(f"  {src} ptxas: " + (" | ".join(lines) or
+                                    "(built before this run)"), flush=True)
     progress("build", t)
 
     preset = make_presets()["reference"]
@@ -447,40 +585,39 @@ def main() -> int:
 
     # --- each kernel vs its plain version on the card ---
     t = time.time()
-    err = max(check_kernel(scene, env_cfg, 64, SEED),
-              check_kernel(scene, EnvConfig(bev_width=100), 64, SEED + 1))
-    inp = bev_plain.bev_inputs(scene,
-                               route_poses(scene, ROLL_ENVS, SEED + 2))
-    b1_times = (
-        cuda_ms(lambda: bev_cuda.render_bev_cuda(
-            env_cfg, inp, scene.bnd_dmax)),
-        cuda_ms(lambda: bev_plain.render_bev_plain(
-            env_cfg, inp, scene.bnd_dmax), iters=3, warmup=1),
-    ) + bev_bound_ms(inp, w)
-    print(f"  bev_raster {ROLL_ENVS} envs x {w} px: kernel "
-          f"{b1_times[0]:.4f} ms, plain {b1_times[1]:.4f} ms, bound "
-          f"{b1_times[2]:.4f} ms ({b1_times[3]})", flush=True)
+    err = max(check_kernel(scene, env_cfg, ROLL_ENVS, SEED),
+              check_kernel(scene, EnvConfig(bev_width=100), ROLL_ENVS,
+                           SEED + 1))
+    ren = route_poses(scene, ROLL_ENVS, SEED + 2)
+    inp = bev_plain.bev_inputs(scene, ren)
+    cs = (torch.cos(ren.yaw), torch.sin(ren.yaw))
+    err_t, b1_times = time_kernel(
+        "bev_raster", scene, env_cfg, ren, inp, None, cs,
+        lambda: bev_cuda.render_bev_cuda(scene, env_cfg, ren, *cs),
+        lambda: bev_cuda.render_bev_cuda_batch(scene, env_cfg, ren),
+        lambda: bev_plain.render_bev_plain(env_cfg, inp, scene.bnd_dmax))
+    err = max(err, err_t)
     progress("kernel_vs_plain bev", t)
 
     t = time.time()
     ren6 = bev6_states(scene, env6_cfg, ROLL_ENVS, SEED + 3)
-    err6 = max(check_kernel6(scene, env6_cfg, ren6),
-               check_kernel6(scene, dataclasses.replace(
-                   env6_cfg, bev_width=100), ren6))
+    # envs 32-63 also on tile corners of the width checked
+    cfg100 = dataclasses.replace(env6_cfg, bev_width=100)
+    err6 = max(
+        check_kernel6(scene, env6_cfg, tile_states(
+            scene, env6_cfg, ren6, range(32, 64), SEED + 4)),
+        check_kernel6(scene, cfg100, tile_states(
+            scene, cfg100, ren6, range(32, 64), SEED + 5)))
     inp6 = bev6_plain.bev6_inputs(scene, env6_cfg, ren6)
-    b2_bound, b2_by, in_view = bev6_bound_ms(env6_cfg, inp6)
-    b2_times = (
-        cuda_ms(lambda: bev6_cuda.render_bev6_cuda(
-            env6_cfg, inp6, scene.bnd_dmax)),
-        cuda_ms(lambda: bev6_plain.render_bev6_plain(
-            env6_cfg, inp6, scene.bnd_dmax), iters=3, warmup=1),
-        b2_bound, b2_by,
-    )
-    n_boxes = inp6.boxes.shape[0] * inp6.boxes.shape[1]
-    print(f"  bev6_raster {ROLL_ENVS} envs x {w} px ({n_boxes} boxes, "
-          f"{in_view} of them can reach the view): kernel "
-          f"{b2_times[0]:.4f} ms, plain {b2_times[1]:.4f} ms, bound "
-          f"{b2_times[2]:.4f} ms ({b2_times[3]})", flush=True)
+    pro6 = bev6_cuda.bev6_prologue(scene, env6_cfg, ren6)
+    err_t, b2_times = time_kernel(
+        "bev6_raster", scene, env6_cfg, ren6, inp6,
+        bev_tiles.kernel_tables(scene, ren6, inp6), pro6,
+        lambda: bev6_cuda.render_bev6_cuda(scene, env6_cfg, ren6, *pro6),
+        lambda: bev6_cuda.render_bev6_cuda_batch(scene, env6_cfg, ren6),
+        lambda: bev6_plain.render_bev6_plain(env6_cfg, inp6,
+                                             scene.bnd_dmax))
+    err6 = max(err6, err_t)
     progress("kernel_vs_plain bev6", t)
 
     # --- end to end against the CPU (plain renderers, float32 model) ---

@@ -6,14 +6,16 @@ finished episode's reward / length / completion and leaderboard fields
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
 
 from gail_carla_tpu_torch.algo.rollout import obs_batch
 from gail_carla_tpu_torch.config import EnvConfig
 from gail_carla_tpu_torch.models import policy as policy_mod
-from gail_carla_tpu_torch.sim.env import reset_batch, step_batch
+from gail_carla_tpu_torch.sim.env import (
+    ResetDraws, StepDraws, reset_batch, step_batch,
+)
 
 _LATCH_KEYS = (
     ("reward", "episode_reward", torch.float32),
@@ -38,12 +40,19 @@ def evaluate_policy(
     n_envs: int = 1,
     max_steps: int = 2400,
     route_ids=None,
+    reset_draws: Optional[ResetDraws] = None,
+    reset_gnss: Optional[torch.Tensor] = None,
+    env_draws: Optional[Sequence[StepDraws]] = None,
 ):
     """Returns a dict of (n_envs,) tensors for the FIRST episode finished
     in each env (episodes auto-reset; the first done is latched).
 
     Pass either a scalar ``route_id`` (all envs on that route, the
-    held-out-route eval) or ``route_ids`` (one env per route)."""
+    held-out-route eval) or ``route_ids`` (one env per route).
+    ``reset_draws`` and ``reset_gnss`` optionally supply the draws of the
+    initial reset (``reset_batch``'s ``draws`` and ``gnss_noise``) and
+    ``env_draws`` (one ``StepDraws`` per step) the environment's at each
+    step; ``generator`` draws whatever is not supplied."""
     # leaderboard termination keeps driving scores comparable across
     # training terminal modes
     eval_cfg = dataclasses.replace(
@@ -57,15 +66,18 @@ def evaluate_policy(
         route_ids = torch.as_tensor(route_ids, dtype=torch.int32,
                                     device=dev)
         n_envs = route_ids.shape[0]
-    st, metrics, render = reset_batch(scene, eval_cfg, route_ids, generator)
+    st, metrics, render = reset_batch(scene, eval_cfg, route_ids, generator,
+                                      draws=reset_draws,
+                                      gnss_noise=reset_gnss)
 
     latched = {"done": torch.zeros(n_envs, dtype=torch.bool, device=dev)}
     for name, _, dt in _LATCH_KEYS:
         latched[name] = torch.zeros(n_envs, dtype=dt, device=dev)
-    for _ in range(max_steps):
+    for t in range(max_steps):
         obs = obs_batch(scene, eval_cfg, render)
         _, action, _ = policy_mod.act(net, obs, metrics, deterministic=True)
-        st, out = step_batch(scene, eval_cfg, st, action, generator)
+        draws = {} if env_draws is None else env_draws[t]._asdict()
+        st, out = step_batch(scene, eval_cfg, st, action, generator, **draws)
         first_done = out.done & (~latched["done"])
         latched["done"] = latched["done"] | out.done
         for name, info_key, dt in _LATCH_KEYS:

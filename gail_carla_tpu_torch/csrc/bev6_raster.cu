@@ -1,12 +1,14 @@
-// 6-channel BEV rasterizer (bev6) for Hopper (sm_90a), plain CUDA C++.
+// 6-channel BEV rasterizer (bev6) for Hopper (sm_90a), plain CUDA C++:
+// kernel B2.
 //
 // Replaces: gail_carla_tpu/ops/bev6_pallas.py::_kernel (entry
 // render_bev6_pallas_batch), the signal- and traffic-aware policy
 // observation. The plain PyTorch version is
-// gail_carla_tpu_torch/ops/bev6.py::render_bev6_plain; the two agree bit for
-// bit on the same inputs.
+// gail_carla_tpu_torch/ops/bev6.py::render_bev6_plain on the tables of
+// ops/bev6.py::bev6_inputs; the two agree bit for bit on the same render
+// state.
 //
-// What it computes, per env and pixel (W x W pixels, pose [x, y, cos, sin]):
+// What it computes, per env and pixel (W x W pixels, ego pose x, y, yaw):
 //   0 road    = sign of the length-normalised cross of the nearest oriented
 //               boundary edge, "nearest" by the key d2 - 1e-3*|cross| with
 //               the first of equal keys winning, where key <= dmax^2;
@@ -15,154 +17,96 @@
 //               half width, times the float32 reciprocal of 255;
 //   3 signals = max of the phase values (80/170/255) of the cell's culled
 //               stop lines within the stroke half width, and 255 inside the
-//               active stop-sign box, times the reciprocal of 255;
+//               active stop-sign box (a square of its larger half extent),
+//               times the reciprocal of 255;
 //   4 vehicles, 5 walkers = 1 inside any of that channel's oriented boxes.
-// The boxes come as one table, each row [x, y, cos, sin, half_len,
-// half_wid, channel, pad] (channel 0 signals, 1 vehicles, 2 walkers); a
-// negative half extent draws nothing. The boundary, lane and light loops
-// run over the cell's live counts only: the tables are padded with
-// far-away sentinels that never win a min or hit a capsule.
+// The plain version draws every light of the town and every stop sign
+// (inactive ones with a negative half extent); the kernel reads the ego
+// cell's culled light table and the one active stop sign. They agree
+// because the cell tables keep every light a pixel of the cell's view can
+// touch (scene/segments.py::build_tl_cells).
 //
-// Bound: FP32 CUDA-core arithmetic. A pixel does about 12 flops per
-// segment, and 10 per box (2 subtractions, 4 multiplies, 2 adds and 2
-// compares; |.| is an operand modifier of the compare). Only a box whose
-// bounding circle meets the view can draw a pixel, so an env needs about
-// W^2 * (12 * (n_bnd + n_lane + K + n_tl) + 10 * n_boxes_in_view) flops,
-// plus a cull test of each box; tensor cores do not apply. The only large
-// memory traffic is the 6 * W^2 * 4 B output write; the tables (about
-// 5.0 KB per env at Mb=88, Ml=32, K=20, Mt=8, B=71) are read once per
-// block into 6.9 KB of shared memory.
+// The kernel, its fetch, tiling, culling and exactness rules are in
+// bev_raster_common.cuh (raster_kernel<true>), shared with bev_raster.cu.
 //
-// Design: as bev_raster.cu, one thread block per (pixel tile of 256, env),
-// one thread per pixel, six register accumulators. Each block stages its
-// env's boundary, lane, route and light segments with the per-segment
-// coefficients hoisted, and its box table, in shared memory, so the
-// per-pixel loops are multiplies, adds, compares and selects. The staging
-// of the boundary, lane and route segments, the pixel transform and the
-// road, route and lane loops are bev_raster.cu's, from
-// bev_raster_common.cuh. The light values are a per-line column of the
-// staged table (the TPU kernel's one-hot einsum is a plain gather in the
-// wrapper). Any W works: the ragged last tile is masked. No TMA, no wgmma,
-// no fused table fetch yet.
-//
-// Exactness: build with --fmad=false and without fast math, so every
-// operation rounds as the plain version's separate float32 tensor ops do;
-// the expressions keep the plain version's op order, including the box
-// transform lx = dx*c + dy*s, ly = -dx*s + dy*c.
+// Bound: at 256 envs x 192 px the 226.5 MB output write (6 channels of
+// float32); a pixel meets a few segments within their reach, and of the
+// 71 boxes per env about 2.7 reach the view at all.
 #include "bev_raster_common.cuh"
 
-using namespace bev_raster;
-
-namespace {
-
-constexpr int kTlCoef = 7;     // ax ay abx aby inv_denom aab val
-constexpr int kBoxCoef = 7;    // x y cos sin half_len half_wid channel
-constexpr int kBoxCols = 8;    // row width of the box table
-
-__global__ void __launch_bounds__(kThreads) bev6_raster_kernel(
-    const int* __restrict__ counts,     // (N, 3) live [n_bnd, n_lane, n_tl]
-    const float* __restrict__ pose,     // (N, 4) x, y, cos yaw, sin yaw
-    const float* __restrict__ bnd,      // (N, Mb, 4)
-    const float* __restrict__ lane,     // (N, Ml, 4)
-    const float* __restrict__ lane_val, // (N, Ml)
-    const float* __restrict__ lane_w,   // (N, Ml)
-    const float* __restrict__ route,    // (N, K, 4)
-    const float* __restrict__ tl,       // (N, Mt, 4)
-    const float* __restrict__ tl_val,   // (N, Mt)
-    const float* __restrict__ boxes,    // (N, B, 8)
-    float* __restrict__ out,            // (N, 6, W, W)
-    int mb, int ml, int k, int mt, int nbox, int w,
-    float fwd_off, float right_off, float scale,
-    float dmax2, float route_half2, float tl_half2) {
-  extern __shared__ float smem[];
-  float* s_bnd = smem;                       // mb * kBndCoef
-  float* s_lane = s_bnd + mb * kBndCoef;     // ml * kLaneCoef
-  float* s_route = s_lane + ml * kLaneCoef;  // k * kRouteCoef
-  float* s_tl = s_route + k * kRouteCoef;    // mt * kTlCoef
-  float* s_box = s_tl + mt * kTlCoef;        // nbox * kBoxCoef
-
-  const int env = blockIdx.y;
-  const int nb = min(max(counts[3 * env], 0), mb);
-  const int nl = min(max(counts[3 * env + 1], 0), ml);
-  const int nt = min(max(counts[3 * env + 2], 0), mt);
-  stage_segments(env, nb, nl, mb, ml, k, bnd, lane, lane_val, lane_w, route,
-                 s_bnd, s_lane, s_route);
-  for (int i = threadIdx.x; i < nt; i += blockDim.x) {
-    const size_t j = (size_t)env * mt + i;
-    float* c = s_tl + i * kTlCoef;
-    capsule_coef(tl + j * 4, c);
-    c[6] = tl_val[j];
-  }
-  for (int i = threadIdx.x; i < nbox; i += blockDim.x) {
-    const float* b = boxes + ((size_t)env * nbox + i) * kBoxCols;
-    float* c = s_box + i * kBoxCoef;
-    for (int j = 0; j < kBoxCoef; ++j) c[j] = b[j];
-  }
-  __syncthreads();
-
-  const int npix = w * w;
-  const int p = blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= npix) return;
-  float pxx, pxy;
-  pixel_world(pose, env, p, w, fwd_off, right_off, scale, &pxx, &pxy);
-  float* o = out + (size_t)env * 6 * npix + p;
-  road_route_lane(pxx, pxy, nb, nl, k, s_bnd, s_lane, s_route, dmax2,
-                  route_half2, o, npix);
-
-  // signals: max phase value over the stop lines within the stroke
-  float sig = 0.0f;
-  for (int i = 0; i < nt; ++i) {
-    const float* e = s_tl + i * kTlCoef;
-    if (capsule_d2(e, pxx, pxy) <= tl_half2) sig = fmaxf(sig, e[6]);
-  }
-
-  // boxes: point in oriented box, drawn into the row's channel
-  float veh = 0.0f;
-  float wk = 0.0f;
-  for (int i = 0; i < nbox; ++i) {
-    const float* b = s_box + i * kBoxCoef;
-    const float dx = pxx - b[0];
-    const float dy = pxy - b[1];
-    const float lx = dx * b[2] + dy * b[3];
-    const float ly = -dx * b[3] + dy * b[2];
-    if (fabsf(lx) <= b[4] && fabsf(ly) <= b[5]) {
-      const float ch = b[6];
-      if (ch == 0.0f) {
-        sig = fmaxf(sig, 255.0f);
-      } else if (ch == 1.0f) {
-        veh = 1.0f;
-      } else if (ch == 2.0f) {
-        wk = 1.0f;
-      }
-    }
-  }
-
-  const float inv_255 = 1.0f / 255.0f;
-  o[3 * npix] = sig * inv_255;
-  o[4 * npix] = veh;
-  o[5 * npix] = wk;
-}
-
-}  // namespace
-
+// The arguments are bev_raster_launch's, in its order, with the bev6
+// tables, counts and extents after each group of the same kind.
 extern "C" int bev6_raster_launch(
-    const void* counts, const void* pose, const void* bnd, const void* lane,
-    const void* lane_val, const void* lane_w, const void* route,
-    const void* tl, const void* tl_val, const void* boxes, void* out,
-    int n, int mb, int ml, int k, int mt, int nbox, int w, float fwd_off,
-    float right_off, float scale, float dmax2, float route_half2,
-    float tl_half2, void* stream) {
-  if (n <= 0 || w <= 0) return (int)cudaSuccess;
-  const size_t smem =
-      sizeof(float) * ((size_t)mb * kBndCoef + (size_t)ml * kLaneCoef +
-                       (size_t)k * kRouteCoef + (size_t)mt * kTlCoef +
-                       (size_t)nbox * kBoxCoef);
-  const dim3 grid((w * w + kThreads - 1) / kThreads, n);
-  bev6_raster_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      (const int*)counts, (const float*)pose, (const float*)bnd,
-      (const float*)lane, (const float*)lane_val, (const float*)lane_w,
-      (const float*)route, (const float*)tl, (const float*)tl_val,
-      (const float*)boxes, (float*)out, mb, ml, k, mt, nbox, w, fwd_off,
-      right_off, scale, dmax2, route_half2, tl_half2);
-  return (int)cudaGetLastError();
+    const void* xy, const void* cos_yaw, const void* sin_yaw,
+    const void* route_id, const void* head, const void* grid_lo,
+    const void* cell_bnd, const void* cell_bnd_n, const void* cell_lane,
+    const void* cell_lane_val, const void* cell_lane_w,
+    const void* cell_lane_n, const void* route_xy, const void* cell_tl,
+    const void* cell_tl_idx, const void* cell_tl_n, const void* light,
+    const void* stop_idx, const void* ss_center, const void* ss_extent,
+    const void* npc, const void* walker, void* out, int n, int gx, int gy,
+    int mb, int ml, int n_routes, int route_len, int window, int stride,
+    int k, int w, int tile_rows, int mt, int n_lights, int n_stop,
+    int n_veh, int n_walk, float inv_cell, float fwd_off, float right_off,
+    float scale, float dmax2, float route_half2, float road_reach,
+    float route_reach, float pad, float tl_half2, float tl_reach,
+    float veh_half_len, float veh_half_wid, float walker_half_len,
+    float walker_half_wid, void* stream) {
+  bev_raster::Params p = {};
+  p.xy = (const float*)xy;
+  p.cosv = (const float*)cos_yaw;
+  p.sinv = (const float*)sin_yaw;
+  p.route_id = (const int*)route_id;
+  p.head = (const int*)head;
+  p.grid_lo = (const float*)grid_lo;
+  p.cell_bnd = (const float*)cell_bnd;
+  p.cell_bnd_n = (const int*)cell_bnd_n;
+  p.cell_lane = (const float*)cell_lane;
+  p.cell_lane_val = (const float*)cell_lane_val;
+  p.cell_lane_w = (const float*)cell_lane_w;
+  p.cell_lane_n = (const int*)cell_lane_n;
+  p.route_xy = (const float*)route_xy;
+  p.cell_tl = (const float*)cell_tl;
+  p.cell_tl_idx = (const int*)cell_tl_idx;
+  p.cell_tl_n = (const int*)cell_tl_n;
+  p.light = (const float*)light;
+  p.stop_idx = (const int*)stop_idx;
+  p.ss_center = (const float*)ss_center;
+  p.ss_extent = (const float*)ss_extent;
+  p.npc = (const float*)npc;
+  p.walker = (const float*)walker;
+  p.out = (float*)out;
+  p.n = n;
+  p.gx = gx;
+  p.gy = gy;
+  p.mb = mb;
+  p.ml = ml;
+  p.mt = mt;
+  p.n_routes = n_routes;
+  p.route_len = route_len;
+  p.window = window;
+  p.stride = stride;
+  p.k = k;
+  p.n_lights = n_lights;
+  p.n_stop = n_stop;
+  p.n_veh = n_veh;
+  p.n_walk = n_walk;
+  p.w = w;
+  p.tile_rows = tile_rows;
+  p.inv_cell = inv_cell;
+  p.fwd_off = fwd_off;
+  p.right_off = right_off;
+  p.scale = scale;
+  p.dmax2 = dmax2;
+  p.route_half2 = route_half2;
+  p.tl_half2 = tl_half2;
+  p.road_reach = road_reach;
+  p.route_reach = route_reach;
+  p.tl_reach = tl_reach;
+  p.pad = pad;
+  p.veh_half_len = veh_half_len;
+  p.veh_half_wid = veh_half_wid;
+  p.walker_half_len = walker_half_len;
+  p.walker_half_wid = walker_half_wid;
+  return bev_raster::launch<true>(p, stream);
 }

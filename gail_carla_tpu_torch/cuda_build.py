@@ -15,14 +15,14 @@ import hashlib
 import os
 import shutil
 import subprocess
-from typing import Dict, Sequence
+from typing import Dict, Optional, Sequence
 
 PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "_build")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
+    "--fmad=false", "-Xptxas=-v", "-shared", "-Xcompiler", "-fPIC",
 )
 NVCC_TIMEOUT_S = 600
 
@@ -57,9 +57,12 @@ def library_path(source: str) -> str:
     return os.path.join(BUILD_DIR, f"lib{stem}-{h.hexdigest()[:16]}.so")
 
 
-def build_all(sources: Sequence[str]) -> Dict[str, str]:
+def build_all(sources: Sequence[str],
+              logs: Optional[Dict[str, str]] = None) -> Dict[str, str]:
     """Build every source not yet built, all ``nvcc`` runs at once; returns
-    {source: library path}. Raises with the compiler's output on failure."""
+    {source: library path}. Raises with the compiler's output on failure;
+    on success, puts each built source's compiler output (with ``ptxas``'s
+    registers, shared memory and spills per kernel) in ``logs``."""
     paths = {s: library_path(s) for s in sources}
     todo = [s for s in sources if not os.path.exists(paths[s])]
     if not todo:
@@ -86,6 +89,8 @@ def build_all(sources: Sequence[str]) -> Dict[str, str]:
             errors.append(f"{s}: nvcc exit {proc.returncode}\n{log.decode()}")
             continue
         os.replace(tmp, paths[s])
+        if logs is not None:
+            logs[s] = log.decode()
     if errors:
         raise RuntimeError("CUDA build failed:\n" + "\n".join(errors))
     return paths

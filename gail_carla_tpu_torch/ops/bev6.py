@@ -10,14 +10,13 @@ exactly as ``ops/bev.py``, plus
 - vehicles: the NPC vehicles' current boxes;
 - walkers: the walkers' current boxes.
 
-This module is the reference of the CUDA kernel (``ops/bev6_cuda.py``):
-both read the tables of ``bev6_inputs``, where cos and sin of every yaw
-are taken once. The plain version follows the JAX package's XLA path: it
-draws every light of the town and every stop sign (inactive ones with a
-negative half extent). The kernel reads the ego cell's culled light
-table and the one active stop-sign box; the two agree bit for bit
-because the culled tables keep every light a pixel of the cell's view
-can touch (``segments.py::build_tl_cells``).
+This module is the reference of the CUDA kernel (``ops/bev6_cuda.py``).
+The plain version follows the JAX package's XLA path: it draws every
+light of the town and every stop sign (inactive ones with a negative half
+extent). The kernel fetches the ego cell's culled light table and the one
+active stop-sign box itself; the two agree bit for bit because the culled
+tables keep every light a pixel of the cell's view can touch
+(``segments.py::build_tl_cells``).
 """
 from __future__ import annotations
 
@@ -27,9 +26,10 @@ import numpy as np
 import torch
 
 from gail_carla_tpu_torch.config import EnvConfig
+from gail_carla_tpu_torch.ops import bev_tiles
 from gail_carla_tpu_torch.ops.bev import (
     INV_255, PLAIN_CHUNK, BevInputs, bev_inputs, capsule_dist2_all,
-    fetch_tl_cell, pixel_world_coords, render_bev_plain,
+    pixel_world_coords, render_bev_plain,
 )
 from gail_carla_tpu_torch.ops.bev_full import (
     TL_LINE_HALF_W, WALKER_HALF, boxes_mask,
@@ -48,12 +48,8 @@ class Bev6Inputs:
     """Per-env tables one 6-channel render reads."""
 
     base: BevInputs          # road, route and lane tables (ops/bev.py)
-    counts: torch.Tensor     # (N, 3) i32 live [n_bnd, n_lane, n_tl]
-    tl: torch.Tensor         # (N, Mt, 4) the cell's culled stop lines
-    tl_val: torch.Tensor     # (N, Mt) f32 their phase values
-    boxes: torch.Tensor      # (N, 1+K+W, 8) active stop sign, K, W
+    boxes: torch.Tensor      # (N, K+W, 8) vehicles, then walkers
     n_veh: int               # K
-    # the plain version's tables: every light and every stop sign
     tl_all: torch.Tensor     # (T, 4) stop lines of the town
     tl_val_all: torch.Tensor  # (N, T) f32 phase values, 0 past tl_n
     stop_boxes: torch.Tensor  # (N, S, 8) stop signs, half -1 if inactive
@@ -82,16 +78,11 @@ def _actor_boxes(pose, half_len: float, half_wid: float, ch: float):
 
 
 def bev6_inputs(scene, cfg: EnvConfig, render_state) -> Bev6Inputs:
-    """Fetch every env's tables for one 6-channel render; cos and sin of
-    every yaw are taken here, once, for the plain version and the kernel
-    alike."""
+    """Fetch every env's tables for one 6-channel render of the plain
+    version."""
     base = bev_inputs(scene, render_state)
     n = base.pose.shape[0]
     dev = base.pose.device
-    rows = torch.arange(n, device=dev)
-    tl_val_all = light_values(scene, cfg, render_state.step)
-    tl, tl_idx, n_tl = fetch_tl_cell(scene, render_state.xy)
-    tl_val = tl_val_all[rows[:, None], tl_idx.long()]
 
     # every stop sign, drawn as a square of its larger extent when it is
     # the env's active un-completed one (stop_idx), else not at all
@@ -109,10 +100,8 @@ def bev6_inputs(scene, cfg: EnvConfig, render_state) -> Bev6Inputs:
         ss[None].expand(n, S, 4), half[..., None], half[..., None],
         (zero + CH_SIGNAL)[..., None], zero[..., None],
     ], dim=-1)
-    stop = stop_boxes[rows, render_state.stop_idx.long().clamp(0, S - 1)]
 
     boxes = torch.cat([
-        stop[:, None, :],
         _actor_boxes(render_state.npc_pose, DEFAULT_VEHICLE.half_length,
                      DEFAULT_VEHICLE.half_width, CH_VEHICLE),
         _actor_boxes(render_state.walker_pose, WALKER_HALF[0],
@@ -120,14 +109,10 @@ def bev6_inputs(scene, cfg: EnvConfig, render_state) -> Bev6Inputs:
     ], dim=1)
     return Bev6Inputs(
         base=base,
-        counts=torch.cat([base.counts, n_tl[:, None].to(torch.int32)],
-                         dim=1).contiguous(),
-        tl=tl.contiguous(),
-        tl_val=tl_val.contiguous(),
         boxes=boxes.contiguous(),
         n_veh=render_state.npc_pose.shape[1],
         tl_all=scene.tl_stop.reshape(-1, 4),
-        tl_val_all=tl_val_all,
+        tl_val_all=light_values(scene, cfg, render_state.step),
         stop_boxes=stop_boxes,
     )
 
@@ -162,8 +147,8 @@ def render_bev6_plain(cfg: EnvConfig, inp: Bev6Inputs,
         stop = _inside(px, inp.stop_boxes[sl])
         sig = torch.maximum(sig, torch.where(stop, 255.0, 0.0)) * INV_255
         boxes = inp.boxes[sl]
-        veh = _inside(px, boxes[:, 1:1 + k]).to(torch.float32)
-        wk = _inside(px, boxes[:, 1 + k:]).to(torch.float32)
+        veh = _inside(px, boxes[:, :k]).to(torch.float32)
+        wk = _inside(px, boxes[:, k:]).to(torch.float32)
         out[sl, 3:] = torch.stack([sig, veh, wk], dim=1).reshape(-1, 3, w, w)
     return out
 
@@ -186,26 +171,61 @@ def render_bev6_batch_auto(scene, cfg: EnvConfig, render_state):
     return render_bev6_batch(scene, cfg, render_state)
 
 
-def place_in_view(scene, render_state, n_placed: int, rng, view,
-                  n_vehicles: int, n_walkers: int):
-    """A copy of a RenderState batch on which every bev6 channel is drawn,
-    to check a renderer with: env j < ``n_placed`` stands 2 m before a
-    random stop line, facing it (even j), or beside a random stop sign
-    made its active one (odd j), at a random sim step so that every light
-    phase shows, with its first ``n_vehicles`` NPC vehicles and
-    ``n_walkers`` walkers at ego-frame offsets inside ``view`` =
-    (behind, ahead, to each side) metres, any heading. ``rng`` is a numpy
-    Generator."""
-    m = n_placed
-    behind, ahead, side = view
+def place_in_view(scene, render_state, envs, rng, n_vehicles: int,
+                  n_walkers: int, view=None, tiles: EnvConfig | None = None):
+    """A copy of a RenderState batch placed to check a renderer with.
+    Each env j of ``envs`` (indices) is moved, at a random sim step so that
+    every light phase shows, and its first ``n_vehicles`` NPC vehicles and
+    ``n_walkers`` walkers with it. ``rng`` is a numpy Generator.
+
+    Without ``tiles``, so that every bev6 channel is drawn: env j stands
+    2 m before a random stop line, facing it (even j), or beside a random
+    stop sign made its active one (odd j), and its actors stand at
+    ego-frame offsets inside ``view`` = (behind, ahead, to each side)
+    metres, any heading.
+
+    With ``tiles`` (an EnvConfig), to stress the BEV kernels' cell lookup,
+    tiles and culling (``ops/bev_tiles.py``) in a view of its width: env j
+    faces along a multiple of 90 degrees and stands on a corner of the
+    spatial-hash cell grid (j % 4 == 0), or with an end of a boundary edge
+    (1), an end of a stop line (2) or the centre of a stop sign made its
+    active one (3) on a tile-corner pixel; its actors are centred on
+    tile-corner pixels, half of them at multiples of 90 degrees. A
+    tile-corner pixel is the first or last row and column of a tile at an
+    inner corner where four tiles meet."""
+    envs = np.asarray(list(envs), dtype=np.int64)
+    rs = render_state
+    xy = rs.xy.cpu().numpy().copy()
+    yaw = rs.yaw.cpu().numpy().copy()
+    stop_idx = rs.stop_idx.cpu().numpy().copy()
+    step = rs.step.cpu().numpy().copy()
+    npc = rs.npc_pose.cpu().numpy().copy()
+    walker = rs.walker_pose.cpu().numpy().copy()
+    n_vehicles = min(n_vehicles, npc.shape[1])
+    n_walkers = min(n_walkers, walker.shape[1])
+    if tiles is None:
+        _place_at_signals(scene, envs, rng, view, xy, yaw, stop_idx, step,
+                          npc[:, :n_vehicles], walker[:, :n_walkers])
+    else:
+        _place_on_tile_corners(scene, tiles, envs, rng, xy, yaw, stop_idx,
+                               step, npc[:, :n_vehicles],
+                               walker[:, :n_walkers])
+    dev = rs.xy.device
+    return dataclasses.replace(
+        rs, xy=torch.from_numpy(xy).to(dev), yaw=torch.from_numpy(yaw).to(dev),
+        step=torch.from_numpy(step).to(dev),
+        stop_idx=torch.from_numpy(stop_idx).to(dev),
+        npc_pose=torch.from_numpy(npc).to(dev),
+        walker_pose=torch.from_numpy(walker).to(dev),
+    )
+
+
+def _place_at_signals(scene, envs, rng, view, xy, yaw, stop_idx, step,
+                      *actors):
     stop = scene.tl_stop.cpu().numpy()
     tl_yaw = scene.tl_yaw.cpu().numpy()
     ss_c = scene.ss_center.cpu().numpy()
-    xy = render_state.xy.cpu().numpy().copy()
-    yaw = render_state.yaw.cpu().numpy().copy()
-    stop_idx = render_state.stop_idx.cpu().numpy().copy()
-    step = render_state.step.cpu().numpy().copy()
-    for j in range(m):
+    for j in envs:
         if j % 2 == 0:
             i = rng.integers(0, scene.tl_n)
             yaw[j] = tl_yaw[i] + rng.normal(0.0, 0.2)
@@ -218,25 +238,67 @@ def place_in_view(scene, render_state, n_placed: int, rng, view,
             xy[j] = ss_c[i] + rng.normal(0.0, 1.5, 2)
             stop_idx[j] = i
         step[j] = rng.integers(0, 240)
-
-    dev = render_state.xy.device
-
-    def around(pose, count):
-        pose = pose.cpu().numpy().copy()
-        count = min(count, pose.shape[1])
+    behind, ahead, side = view
+    m = len(envs)
+    c, s = np.cos(yaw[envs, None]), np.sin(yaw[envs, None])
+    for pose in actors:
+        count = pose.shape[1]
         lx = rng.uniform(-behind, ahead, (m, count))
         ly = rng.uniform(-side, side, (m, count))
-        c, s = np.cos(yaw[:m, None]), np.sin(yaw[:m, None])
-        pose[:m, :count] = np.stack([
-            xy[:m, :1] + lx * c - ly * s, xy[:m, 1:] + lx * s + ly * c,
+        pose[envs] = np.stack([
+            xy[envs, :1] + lx * c - ly * s, xy[envs, 1:] + lx * s + ly * c,
             rng.uniform(-np.pi, np.pi, (m, count))], -1)
-        return torch.from_numpy(pose).to(dev)
 
-    return dataclasses.replace(
-        render_state, xy=torch.from_numpy(xy).to(dev),
-        yaw=torch.from_numpy(yaw).to(dev),
-        step=torch.from_numpy(step).to(dev),
-        stop_idx=torch.from_numpy(stop_idx).to(dev),
-        npc_pose=around(render_state.npc_pose, n_vehicles),
-        walker_pose=around(render_state.walker_pose, n_walkers),
-    )
+
+def _place_on_tile_corners(scene, cfg: EnvConfig, envs, rng, xy, yaw,
+                           stop_idx, step, *actors):
+    fwd_off, right_off, scale = bev_tiles.view_params(cfg)
+    tx, ty = bev_tiles.tile_grid(cfg.bev_width)
+    rows, cols = bev_tiles.TILE_ROWS, bev_tiles.TILE_COLS
+    lo = scene.cell_grid_lo.cpu().numpy().astype(np.float64)
+    gy, gx = scene.cell_road.shape[:2]
+    bnd = scene.cell_bnd.cpu().numpy().reshape(-1, scene.cell_bnd.shape[2],
+                                               4)
+    bnd_n = scene.cell_bnd_n.cpu().numpy().reshape(-1)
+    stop = scene.tl_stop.cpu().numpy()
+    ss_c = scene.ss_center.cpu().numpy()
+
+    def corner_pixel():
+        row = rows * int(rng.integers(1, max(ty, 2)))
+        col = cols * int(rng.integers(1, max(tx, 2)))
+        return row - int(rng.integers(0, 2)), col - int(rng.integers(0, 2))
+
+    def pixel_offset(c, s, row, col):
+        """World offset of pixel (row, col) from the ego at heading c, s."""
+        return np.array([
+            fwd_off * c + right_off * s - col * scale * s - row * scale * c,
+            fwd_off * s - right_off * c + col * scale * c - row * scale * s,
+        ])
+
+    for j in envs:
+        yaw[j] = np.float32(0.5 * np.pi * int(rng.integers(0, 4)))
+        c, s = np.cos(yaw[j]), np.sin(yaw[j])
+        kind = j % 4
+        stop_idx[j] = -1
+        step[j] = rng.integers(0, 240)
+        if kind == 0:
+            pos = lo + scene.cell_size * np.array(
+                [rng.integers(1, gx), rng.integers(1, gy)])
+        else:
+            if kind == 1:
+                cell = rng.choice(np.flatnonzero(bnd_n > 0))
+                seg = bnd[cell, rng.integers(0, bnd_n[cell])]
+                target = seg[2 * int(rng.integers(0, 2)):][:2]
+            elif kind == 2:
+                target = stop[rng.integers(0, scene.tl_n),
+                              rng.integers(0, 2)]
+            else:
+                stop_idx[j] = rng.integers(0, scene.ss_n)
+                target = ss_c[stop_idx[j]]
+            pos = target - pixel_offset(c, s, *corner_pixel())
+        xy[j] = pos
+        for pose in actors:
+            for a in range(pose.shape[1]):
+                pose[j, a, :2] = pos + pixel_offset(c, s, *corner_pixel())
+                pose[j, a, 2] = (0.5 * np.pi * int(rng.integers(0, 4))
+                                 if a % 2 == 0 else rng.uniform(-np.pi, np.pi))

@@ -141,8 +141,7 @@ def test_kernel_matches_plain_on_card():
     for width in (192, 100):
         cfg = dataclasses.replace(EnvConfig(), bev_width=width)
         rs = _port_rs(_poses(scene.to("cpu"), 16, width), "cuda")
-        inp = bev.bev_inputs(scene, rs)
-        got = bev_cuda.render_bev_cuda(cfg, inp, scene.bnd_dmax)
-        want = bev.render_bev_plain(cfg, inp, scene.bnd_dmax)
+        got = bev_cuda.render_bev_cuda_batch(scene, cfg, rs)
+        want = bev.render_bev_batch(scene, cfg, rs)
         assert int((got != want).sum()) == 0
 

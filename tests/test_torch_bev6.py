@@ -58,9 +58,10 @@ def bev6_render_states(scene, n: int, n_placed: int, seed: int,
         st, out = step_batch(scene, cfg, st, action, gen)
     # ego-frame offsets inside the 64 px view (8 m behind, 4.8 m ahead,
     # 6.4 m to each side)
-    return bev6.place_in_view(scene, out.render, n_placed,
-                              np.random.default_rng(seed), (6.0, 4.0, 5.0),
-                              cfg.n_npc_vehicles, cfg.n_npc_walkers)
+    return bev6.place_in_view(scene, out.render, range(n_placed),
+                              np.random.default_rng(seed),
+                              cfg.n_npc_vehicles, cfg.n_npc_walkers,
+                              view=(6.0, 4.0, 5.0))
 
 
 def _jax_rs(rs):
@@ -141,9 +142,8 @@ def test_bev6_kernel_matches_plain_on_card(width):
                                  device="cuda")
     cfg = EnvConfig(bev_width=width, **TRAFFIC)
     rs = bev6_render_states(scene, 16, 8, seed=width, device="cuda")
-    inp = bev6.bev6_inputs(scene, cfg, rs)
-    got = bev6_cuda.render_bev6_cuda(cfg, inp, scene.bnd_dmax)
-    want = bev6.render_bev6_plain(cfg, inp, scene.bnd_dmax)
+    got = bev6_cuda.render_bev6_cuda_batch(scene, cfg, rs)
+    want = bev6.render_bev6_batch(scene, cfg, rs)
     torch.cuda.synchronize()
     assert int((got != want).sum()) == 0
     assert all(bool(got[:, c].any()) for c in (3, 4, 5))

@@ -251,3 +251,59 @@ def test_bev6_rollout_with_traffic_matches_jax():
     assert int((1.0 - pro.masks[1:][:flip]).sum()) >= 4
     # the policy saw NPC vehicles and walkers before the window ended
     assert bool(seen[4]) and bool(seen[5])
+
+
+def test_bev6_evaluate_with_traffic_matches_jax():
+    """``evaluate_policy`` with ``obs_mode="bev6"`` and NPC traffic, port
+    against JAX with converted params and every draw injected: the reset's
+    and each step's. The policy's throttle bias is raised so that the ego
+    drives into the traffic within 3 s episodes, and a port run with other
+    draws must end differently, so the draws decide the results compared.
+    The step draws follow each env's key chain without an auto-reset; an
+    env's chain changes only after its first episode ends, and nothing
+    after that reaches the latched results."""
+    import jax
+    import jax.numpy as jnp
+    from gail_carla_tpu.algo.evaluate import evaluate_policy as jax_eval
+    from gail_carla_tpu.models.policy import init_policy as jax_init
+    from gail_carla_tpu.scene.scene import (
+        make_benchmark_scene as make_jax_scene,
+    )
+    from gail_carla_tpu.sim.env import reset_batch as jax_reset
+    from test_torch_traffic import jax_batch_reset_draws
+
+    cfg = dataclasses.replace(BEV6_ENV, max_time=3.0)
+    eval_cfg = dataclasses.replace(cfg, train=False,
+                                   terminal_mode="leaderboard")
+    w = cfg.bev_width
+    net, params = jax_init(jax.random.PRNGKey(4), PRESET["model"], (6, w, w))
+    params = jax.tree.map(np.array, params)
+    params["params"]["Dense_4"]["bias"][2] += 2.0   # throttle mean
+    port_net = policy_from_flax(params, PRESET["model"], (6, w, w),
+                                device="cpu")
+    port_scene = make_benchmark_scene(**PRESET["scene"], device="cpu")
+    jax_scene = make_jax_scene(**PRESET["scene"])
+    n_patrols = port_scene.patrol_xy.shape[0]
+    rid = np.array([0, 1, 1, 0], np.int32)
+    n, n_steps = len(rid), 32
+    key = jax.random.PRNGKey(6)
+    want = jax_eval(jax_scene, cfg, net, params, key, route_ids=rid,
+                    max_steps=n_steps)
+
+    st, _, _ = jax_reset(jax_scene, eval_cfg, key, jnp.asarray(rid))
+    env_draws = _jax_rollout_draws(st.rng, np.zeros((n_steps, n), bool),
+                                   eval_cfg, n_patrols)
+    draws, gnss = jax_batch_reset_draws(key, n, eval_cfg, n_patrols)
+    got = evaluate_policy(port_scene, cfg, port_net, None, route_ids=rid,
+                          max_steps=n_steps, reset_draws=draws,
+                          reset_gnss=gnss, env_draws=env_draws)
+    assert set(got) == set(want)
+    for k in want:
+        _close(got[k], want[k], k)
+    assert bool(got["done"].all())
+
+    gen = torch.Generator()
+    gen.manual_seed(0)
+    other = evaluate_policy(port_scene, cfg, port_net, gen, route_ids=rid,
+                            max_steps=n_steps)
+    assert not torch.equal(other["score_route"], got["score_route"])
