@@ -11,13 +11,20 @@ drives the two observation paths at the full width of the ``reference``
 preset (the 4x4 grid town with 10 routes, 192 px BEV, convs
 32-64-128-256, hidden 512, bfloat16 convs, random weights from a numpy
 seed), each through the entry points a user calls: deterministic
-evaluation on the held-out route and a rollout.
+evaluation on the held-out route and a rollout, and on the ``"bev"`` path
+two WDGAIL training updates.
 
 - the ``"bev"`` path: 3-channel observation, no traffic, kernel
   ``bev_raster`` (the TPU kernel ``ops/bev_pallas.py``);
 - the ``"bev6"`` path: 6-channel observation with 20 NPC vehicles and 50
   walkers per env (NoCrash "regular" Town01 densities), kernel
-  ``bev6_raster`` (the TPU kernel ``ops/bev6_pallas.py``).
+  ``bev6_raster`` (the TPU kernel ``ops/bev6_pallas.py``);
+- the ``"train bev"`` path: ``WDGAILLearner.update`` at the reference
+  preset (10 envs x 720 steps, the packed observation store, critic epochs
+  6 then 5 with the gradient penalty, 16 PPO epochs of 128-sample
+  minibatches) against a stand-in expert buffer of 7,200 rows rolled out
+  by a second random policy; its per-part breakdown (CUDA events), each
+  update's wall time and B1's launches per update.
 
 Each kernel is checked against its plain version on the same render
 states of the rollout's 256 envs, at W=192 and W=100, with envs placed on
@@ -29,7 +36,12 @@ PyTorch prologue and checks included), beside its plain version and its
 bound: the larger of the bytes it must move over the memory rate and the
 operations of the pixel-item pairs within reach over the float32 peak
 (``pair_counts``). The outputs of its first and last launch on the timed
-inputs are held against the plain version's too.
+inputs are held against the plain version's too, and the observation
+store's pack/unpack round trip of each kernel's output must change 0
+values. A float32 update at the smoke preset runs on the card and on the
+CPU with the same draws and must agree within the CPU tests' tolerances;
+a minibatch fetched from the training path's packed store must equal its
+re-render through B1.
 
 It prints one progress line per phase (with ``ptxas``'s registers,
 shared memory and spills of each build), a per-step time breakdown of
@@ -54,10 +66,21 @@ import numpy as np
 import torch
 
 from gail_carla_tpu_torch import cuda_build
+from gail_carla_tpu_torch.algo import learner as learner_mod
+from gail_carla_tpu_torch.algo import ppo as ppo_mod
+from gail_carla_tpu_torch.algo import wdgail as wdgail_mod
+from gail_carla_tpu_torch.algo.buffers import (
+    build_expert_buffer, fetch_rollout_obs, map_state, pack_bev_obs,
+    unpack_bev_obs,
+)
 from gail_carla_tpu_torch.algo.evaluate import evaluate_policy
+from gail_carla_tpu_torch.algo.expert import DemoBatch
+from gail_carla_tpu_torch.algo.learner import UpdateDraws, WDGAILLearner
 from gail_carla_tpu_torch.algo.rollout import collect_rollout
 from gail_carla_tpu_torch.config import EnvConfig, ModelConfig
-from gail_carla_tpu_torch.convert import init_policy
+from gail_carla_tpu_torch.convert import (
+    init_critic_flax_params, init_flax_params, init_policy,
+)
 from gail_carla_tpu_torch.models import policy as policy_mod
 from gail_carla_tpu_torch.ops import bev as bev_plain
 from gail_carla_tpu_torch.ops import bev6 as bev6_plain
@@ -66,7 +89,7 @@ from gail_carla_tpu_torch.ops.bev import ROUTE_HALF_W
 from gail_carla_tpu_torch.ops.bev_full import TL_LINE_HALF_W
 from gail_carla_tpu_torch.scene.scene import make_benchmark_scene
 from gail_carla_tpu_torch.sim.env import (
-    RenderState, draw_reset, draw_step, reset_batch, step_batch,
+    RenderState, draw_gnss, draw_reset, draw_step, reset_batch, step_batch,
 )
 from gail_carla_tpu_torch.sim.traffic import step_traffic
 from gail_carla_tpu_torch.train import make_presets
@@ -77,6 +100,15 @@ N_VEHICLES, N_WALKERS = 20, 50
 # depth of each path: evaluation on the held-out route, then a rollout
 EVAL_ROUTE, EVAL_ENVS, EVAL_STEPS = 3, 16, 200
 ROLL_ENVS, ROLL_STEPS = 256, 32
+# the training phase: updates of WDGAILLearner at the reference preset
+# (TrainConfig(n_envs=10): 720 steps per env), a stand-in expert buffer
+# capped at 7,200 rows and a validation buffer of 1,024 rows
+TRAIN_UPDATES, EXPERT_ROWS, VAL_ROWS = 2, 7200, 1024
+# the card-vs-CPU update at the smoke preset: 16 steps per env
+SMOKE_STEPS_PER_ENV = 16
+# the CPU tests' tolerances (tests/test_torch_learner.py): losses and aux
+# 1e-4 relative (1e-6 absolute), parameters 2e-5 absolute
+LOSS_RTOL, LOSS_ATOL, PARAM_ATOL = 1e-4, 1e-6, 2e-5
 # H100 SXM peaks (NVIDIA data sheet, dense, at 700 W): float32 outside the
 # tensor cores, and HBM3 bandwidth
 PEAK_F32_FLOPS = 67e12
@@ -285,10 +317,25 @@ def check_kernel(scene, cfg: EnvConfig, n: int, seed: int):
     is equal; returns the max abs difference."""
     ren = tile_states(scene, cfg, route_poses(scene, n, seed),
                       range(n // 2), seed)
-    return compare("bev_raster",
-                   bev_cuda.render_bev_cuda_batch(scene, cfg, ren),
-                   bev_plain.render_bev_batch(scene, cfg, ren),
-                   f"W={cfg.bev_width} n={n} ({n // 2} on tile corners)")
+    out = bev_cuda.render_bev_cuda_batch(scene, cfg, ren)
+    err = compare("bev_raster", out,
+                  bev_plain.render_bev_batch(scene, cfg, ren),
+                  f"W={cfg.bev_width} n={n} ({n // 2} on tile corners)")
+    check_pack_round_trip("bev_raster", cfg, out)
+    return err
+
+
+def check_pack_round_trip(name: str, cfg: EnvConfig, out: torch.Tensor):
+    """Raises unless the observation store's unpack(pack(out)) equals the
+    kernel output ``out`` at every value."""
+    back = unpack_bev_obs(cfg, pack_bev_obs(cfg, out))
+    torch.cuda.synchronize()
+    diff = int((back != out).sum())
+    print(f"  {name} W={cfg.bev_width}: pack/unpack round trip {diff} of "
+          f"{out.numel()} values differ", flush=True)
+    if diff != 0:
+        raise AssertionError(f"the packed store changes {diff} values of "
+                             f"{name}'s output")
 
 
 def to_device(x, dev):
@@ -325,9 +372,10 @@ def check_kernel6(scene, cfg: EnvConfig, ren: RenderState):
     unless every value is equal and the signal, vehicle and walker
     channels are drawn, and returns the max abs difference."""
     b = bev6_plain.render_bev6_batch(scene, cfg, ren)
-    err = compare("bev6_raster",
-                  bev6_cuda.render_bev6_cuda_batch(scene, cfg, ren), b,
+    out = bev6_cuda.render_bev6_cuda_batch(scene, cfg, ren)
+    err = compare("bev6_raster", out, b,
                   f"W={cfg.bev_width} n={ren.yaw.shape[0]}")
+    check_pack_round_trip("bev6_raster", cfg, out)
     if min(int((b[:, c] != 0).sum()) for c in range(3, 6)) == 0:
         raise AssertionError("a signal/vehicle/walker channel is empty: "
                              "the comparison would prove nothing")
@@ -529,6 +577,265 @@ def breakdown(scene, cfg: EnvConfig, net, gen, start, render_fn):
     progress(f"breakdown {cfg.obs_mode}", t)
 
 
+def stand_in_demos(scene, cfg: EnvConfig, model_cfg: ModelConfig,
+                   route_ids, n_steps: int, gen) -> DemoBatch:
+    """Demos from a rollout of a second numpy-seeded policy, every step
+    valid: the stand-in for the scripted expert's demos, which are not
+    ported yet."""
+    net = init_policy(model_cfg, (3, cfg.bev_width, cfg.bev_width),
+                      seed=SEED + 7, device=scene.device)
+    st, met, ren = reset_batch(scene, cfg, route_ids, gen)
+    ro = collect_rollout(scene, cfg, net, st, met, ren, gen, n_steps)[3]
+    return DemoBatch(map_state(lambda a: a[:-1], ro.render),
+                     ro.metrics[:-1], ro.actions,
+                     torch.ones(ro.actions.shape[:2], dtype=torch.bool,
+                                device=scene.device))
+
+
+def demos_to(demos: DemoBatch, dev) -> DemoBatch:
+    """The same demos on device ``dev``."""
+    return DemoBatch(map_state(lambda a: a.to(dev), demos.render),
+                     demos.metrics.to(dev), demos.actions.to(dev),
+                     demos.valid.to(dev))
+
+
+class PartTimer:
+    """Inside ``with``, the functions the learner's update calls record
+    CUDA events around every call (the device time from the call's first
+    launch to its last, host launch gaps included), and the last result of
+    each is kept."""
+
+    PARTS = ((learner_mod, "collect_rollout", "rollout"),
+             (wdgail_mod, "validation_wd", "validation_wd (2 calls)"),
+             (wdgail_mod, "disc_update", "disc_update"),
+             (wdgail_mod, "relabel_rewards", "relabel_rewards"),
+             (learner_mod, "compute_returns", "compute_returns"),
+             (ppo_mod, "ppo_update", "ppo_update"))
+
+    def __init__(self):
+        self.events, self.last, self._saved = {}, {}, []
+
+    def _wrap(self, fn, label):
+        def timed(*args, **kwargs):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args, **kwargs)
+            end.record()
+            self.events.setdefault(label, []).append((start, end))
+            self.last[label] = out
+            return out
+        return timed
+
+    def __enter__(self):
+        for mod, attr, label in self.PARTS:
+            fn = getattr(mod, attr)
+            self._saved.append((mod, attr, fn))
+            setattr(mod, attr, self._wrap(fn, label))
+        return self
+
+    def __exit__(self, *exc):
+        for mod, attr, fn in self._saved:
+            setattr(mod, attr, fn)
+        self._saved.clear()
+
+    def ms(self):
+        """{part: CUDA-event ms summed over its calls}, then cleared."""
+        torch.cuda.synchronize()
+        out = {k: sum(s.elapsed_time(e) for s, e in v)
+               for k, v in self.events.items()}
+        self.events.clear()
+        return out
+
+
+def check_finite(what: str, metrics: dict, nets) -> None:
+    """Raises unless every metric and every weight of ``nets`` (name, net)
+    is finite."""
+    bad = [k for k, v in metrics.items()
+           if not bool(torch.isfinite(v.to(torch.float32)))]
+    bad += [f"{name}.{k}" for name, net in nets
+            for k, v in net.state_dict().items()
+            if not bool(torch.isfinite(v).all())]
+    if bad:
+        raise AssertionError(f"{what}: non-finite {bad}")
+
+
+def train_path(scene, env_cfg: EnvConfig, model_cfg: ModelConfig, tcfg,
+               gen):
+    """The training path at the reference preset: a stand-in expert and
+    validation buffer, then ``TRAIN_UPDATES`` calls of
+    ``WDGAILLearner.update`` with the packed observation store. Every
+    launch count is set to 0 just before the updates and read just after;
+    raises unless B1 ran once per render (each step and the bootstrap),
+    B2 never, and every loss, aux value and parameter is finite. Prints
+    each update's wall time and its per-part breakdown. Returns B1's
+    launches."""
+    dev = scene.device
+    t = time.time()
+    n, steps = tcfg.n_envs, tcfg.steps_per_env
+    routes = torch.tensor(tcfg.routes, device=dev)
+    train_routes = routes[torch.arange(n, device=dev) % len(routes)]
+    expert = build_expert_buffer(
+        scene, env_cfg, stand_in_demos(scene, env_cfg, model_cfg,
+                                       train_routes, steps, gen),
+        max_size=EXPERT_ROWS)
+    val_routes = torch.full((n,), tcfg.eval_route, device=dev)
+    expert_val = build_expert_buffer(
+        scene, env_cfg, stand_in_demos(scene, env_cfg, model_cfg, val_routes,
+                                       -(-VAL_ROWS // n), gen),
+        max_size=VAL_ROWS)
+    torch.cuda.synchronize()
+    print(f"  stand-in expert: {expert.size} rows ({n} envs x {steps} "
+          f"steps), validation {expert_val.size} rows (route "
+          f"{tcfg.eval_route}), packed obs {tuple(expert.obs.shape)} "
+          f"{expert.obs.dtype}, {time.time() - t:.2f} s", flush=True)
+
+    learner = WDGAILLearner(scene, env_cfg, model_cfg, tcfg, expert,
+                            expert_val, store_obs=True)
+    state = learner.init_state()
+    libs = (bev_cuda.LIB, bev6_cuda.LIB)
+    for lib in libs:
+        lib.launches = 0
+    timer = PartTimer()
+    total = n * steps
+    n_mb_disc = min(expert.size, total) // tcfg.gail_batch_size
+    n_mb_ppo = tcfg.ppo_epoch * (total // tcfg.mini_batch_size)
+    for _ in range(TRAIN_UPDATES):
+        before = bev_cuda.LIB.launches
+        n_epochs = wdgail_mod.warmup_epochs(tcfg, state.update_i + 1)
+        torch.cuda.synchronize()
+        t_up = time.time()
+        with timer:
+            state, metrics = learner.update(state)
+        torch.cuda.synchronize()
+        wall = time.time() - t_up
+        parts = timer.ms()
+        ro = timer.last["rollout"][3]
+        launches = bev_cuda.LIB.launches - before
+        check_finite(f"update {state.update_i}", metrics,
+                     (("policy", state.policy), ("critic", state.disc)))
+        if launches != steps + 1:
+            raise AssertionError(f"update {state.update_i}: B1 launches "
+                                 f"{launches} != renders issued {steps + 1}")
+        if bev6_cuda.LIB.launches:
+            raise AssertionError("B2 was launched on the bev training path")
+        disc_mb = parts["disc_update"] / (n_epochs * n_mb_disc)
+        print(f"  update {state.update_i} ({n} envs x {steps} steps, "
+              f"{n_epochs} critic epochs x {n_mb_disc} minibatches, "
+              f"{n_mb_ppo} PPO minibatches): wall {wall:.3f} s; B1 launches "
+              f"{launches}; " + ", ".join(
+                  f"{k} {v:.1f} ms" for k, v in parts.items())
+              + f"; disc_update {disc_mb:.3f} ms per minibatch, ppo_update "
+              f"{parts['ppo_update'] / n_mb_ppo:.3f} ms per minibatch",
+              flush=True)
+        print("  update {} metrics: {}".format(state.update_i, ", ".join(
+            f"{k} {float(v):.5g}" for k, v in sorted(metrics.items()))),
+            flush=True)
+    launches = bev_cuda.LIB.launches
+
+    # the packed store against a re-render of one minibatch through B1
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED)
+    idx = torch.randperm(total, generator=g, device=dev)[
+        :tcfg.mini_batch_size]
+    stored = fetch_rollout_obs(scene, env_cfg, ro, idx // n, idx % n)
+    remat = fetch_rollout_obs(scene, env_cfg,
+                              dataclasses.replace(ro, obs=None),
+                              idx // n, idx % n)
+    torch.cuda.synchronize()
+    diff = int((stored != remat).sum())
+    print(f"  stored vs re-rendered minibatch ({tcfg.mini_batch_size} "
+          f"samples): {diff} of {stored.numel()} values differ, packed "
+          f"store {tuple(ro.obs.shape)} {ro.obs.dtype}", flush=True)
+    if diff != 0:
+        raise AssertionError("the packed store and a re-render differ")
+    return launches
+
+
+def train_card_vs_cpu(seed: int):
+    """One float32 update at the smoke preset (64 px, convs 8-16, 4 envs x
+    ``SMOKE_STEPS_PER_ENV`` steps) on the card and on the CPU from the same
+    weights, reset and draws (made on the CPU), with the same stand-in
+    expert rows; raises unless the losses and aux agree within the CPU
+    tests' tolerance and the new weights within ``PARAM_ATOL``."""
+    smoke = make_presets()["smoke"]
+    env_cfg, model_cfg = smoke["env"], smoke["model"]
+    tcfg = dataclasses.replace(
+        smoke["train"], num_steps=SMOKE_STEPS_PER_ENV * smoke["train"].n_envs)
+    n, steps = tcfg.n_envs, tcfg.steps_per_env
+    total = n * steps
+    w = env_cfg.bev_width
+    obs_shape = (3, w, w)
+    cpu = torch.device("cpu")
+    gen = torch.Generator()
+    gen.manual_seed(seed)
+    cpu_scene = make_benchmark_scene(**smoke["scene"], device=cpu)
+    route_ids = torch.arange(n) % cpu_scene.n_routes
+    # the stand-in expert's demos, rolled out on the CPU
+    demos = stand_in_demos(cpu_scene, env_cfg, model_cfg, route_ids, steps,
+                           gen)
+    e_size = total
+    n_mb = min(e_size, total) // tcfg.gail_batch_size
+    reset = draw_reset(cpu_scene, env_cfg, n, gen)
+    gnss = draw_gnss(n, cpu, gen)
+    n_epochs = wdgail_mod.warmup_epochs(tcfg, 1)
+    draws = UpdateDraws(
+        action_noise=torch.randn((steps, n, 2), generator=gen),
+        env_draws=[draw_step(cpu_scene, env_cfg, n, gen)
+                   for _ in range(steps)],
+        disc=[wdgail_mod.draw_disc_epoch(n_mb, tcfg.gail_batch_size,
+                                         e_size, total, cpu, gen)
+              for _ in range(n_epochs)],
+        ppo_perms=ppo_mod.draw_perms(
+            tcfg.ppo_epoch, total,
+            total // tcfg.mini_batch_size * tcfg.mini_batch_size, cpu, gen),
+        val_pre=wdgail_mod.draw_validation(e_size, total, cpu, gen),
+        val_post=wdgail_mod.draw_validation(e_size, total, cpu, gen),
+    )
+    pparams = init_flax_params(model_cfg, obs_shape, seed)
+    dparams = init_critic_flax_params(model_cfg, obs_shape, seed + 1)
+    outs = []
+    for d in (torch.device("cuda"), cpu):
+        sc = cpu_scene if d == cpu else cpu_scene.to(d)
+        expert = build_expert_buffer(sc, env_cfg, demos_to(demos, d))
+        learner = WDGAILLearner(sc, env_cfg, model_cfg, tcfg, expert,
+                                policy_params=pparams, disc_params=dparams)
+        state = learner.init_state(reset_draws=to_device(reset, d),
+                                   reset_gnss=gnss.to(d))
+        dd = dataclasses.replace(
+            draws, action_noise=draws.action_noise.to(d),
+            env_draws=[to_device(e, d) for e in draws.env_draws],
+            disc=[to_device(e, d) for e in draws.disc],
+            ppo_perms=draws.ppo_perms.to(d), val_pre=draws.val_pre.to(d),
+            val_post=draws.val_post.to(d))
+        state, metrics = learner.update(state, dd)
+        outs.append((expert, state, metrics))
+    (ge, gs, gm), (ce, cs, cm) = outs
+    if not torch.equal(ge.obs.cpu(), ce.obs):
+        raise AssertionError("the expert's packed obs differ between card "
+                             "and CPU")
+    worst_rel = 0.0
+    for k, v in cm.items():
+        a, b = float(gm[k]), float(v)
+        if abs(a - b) > LOSS_ATOL + LOSS_RTOL * abs(b):
+            raise AssertionError(f"card vs CPU update: {k} {a} vs {b}")
+        worst_rel = max(worst_rel, abs(a - b) / max(abs(b), 1e-30))
+    worst_param = 0.0
+    for name, g, c in (("policy", gs.policy, cs.policy),
+                       ("critic", gs.disc, cs.disc)):
+        csd = c.state_dict()
+        for k, v in g.state_dict().items():
+            worst_param = max(worst_param, max_abs_diff(v, csd[k]))
+    print(f"  card vs CPU update (smoke preset, {n} envs x {steps} steps, "
+          f"{n_epochs} critic epochs, float32): {len(cm)} metrics, worst "
+          f"relative difference {worst_rel:.3e}; max |dparam| "
+          f"{worst_param:.3e} (limit {PARAM_ATOL}); disc/dis_gp "
+          f"{float(gm['disc/dis_gp']):.5g} vs {float(cm['disc/dis_gp']):.5g}",
+          flush=True)
+    if worst_param > PARAM_ATOL:
+        raise AssertionError("card and CPU updates disagree on the weights")
+
+
 def kernel_line(name, source, replaces, launches, err, times):
     k_ms, p_ms, b_ms, b_by = times
     return {
@@ -627,6 +934,7 @@ def main() -> int:
                 SEED)
     card_vs_cpu(scene, dataclasses.replace(env6_cfg, **quiet), (6, w, w),
                 SEED + 1)
+    train_card_vs_cpu(SEED + 2)
     progress("reference", t)
 
     gen = torch.Generator(device=dev)
@@ -646,6 +954,11 @@ def main() -> int:
                                    bev6_cuda.LIB)
     breakdown(scene, env6_cfg, net6, gen, start6,
               bev6_cuda.render_bev6_cuda_batch)
+
+    # --- the training path: WDGAIL updates on the bev path ---
+    t = time.time()
+    launches += train_path(scene, env_cfg, model_cfg, preset["train"], gen)
+    progress("train bev", t)
 
     torch.cuda.synchronize()
     print(json.dumps({"kernels": [

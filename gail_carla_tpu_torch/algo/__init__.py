@@ -1,1 +1,2 @@
-"""Rollout collection and deterministic evaluation."""
+"""Rollout collection, evaluation, the observation store and the WDGAIL
+training update (critic, PPO, optimizers, learner)."""

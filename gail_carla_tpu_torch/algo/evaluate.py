@@ -10,7 +10,7 @@ from typing import Optional, Sequence
 
 import torch
 
-from gail_carla_tpu_torch.algo.rollout import obs_batch
+from gail_carla_tpu_torch.algo.buffers import obs_batch
 from gail_carla_tpu_torch.config import EnvConfig
 from gail_carla_tpu_torch.models import policy as policy_mod
 from gail_carla_tpu_torch.sim.env import (

@@ -4,9 +4,9 @@ device, one Python iteration per step in place of ``lax.scan``; each
 step's observation comes from the BEV renderer of ``cfg.obs_mode`` (a
 CUDA kernel on the card).
 
-Only ``store_obs=False`` is ported: the rollout keeps the compact render
-states, from which minibatches re-render; the bit-packed observation
-store comes with the training slice.
+With ``store_obs=True`` (the learner's default) each step's observation
+and the bootstrap's are kept bit-packed (``algo/buffers.py``); with
+``store_obs=False`` minibatches re-render from the compact render states.
 """
 from __future__ import annotations
 
@@ -15,47 +15,10 @@ from typing import List, Optional, Sequence, Tuple
 
 import torch
 
+from gail_carla_tpu_torch.algo.buffers import Rollout, obs_batch, store_encode
 from gail_carla_tpu_torch.config import EnvConfig
 from gail_carla_tpu_torch.models import policy as policy_mod
-from gail_carla_tpu_torch.ops.bev import render_bev_batch_auto
-from gail_carla_tpu_torch.ops.bev6 import render_bev6_batch_auto
 from gail_carla_tpu_torch.sim.env import StepDraws, step_batch
-
-
-@dataclasses.dataclass
-class Rollout:
-    """(T, N, ...) on-policy buffer; row [T] of metrics/render/values holds
-    the bootstrap step."""
-
-    render: object               # RenderState, leaves (T+1, N, ...)
-    metrics: torch.Tensor        # (T+1, N, 4)
-    obs: Optional[torch.Tensor]  # stored observations (not ported: None)
-    actions: torch.Tensor        # (T, N, 2)
-    logp: torch.Tensor           # (T, N)
-    values: torch.Tensor         # (T+1, N)
-    env_rewards: torch.Tensor    # (T, N)
-    masks: torch.Tensor          # (T+1, N); masks[t+1] = 0 if step t ended
-    gail_rewards: torch.Tensor   # (T, N), filled by the relabel pass
-
-    @property
-    def T(self):
-        return self.actions.shape[0]
-
-    @property
-    def N(self):
-        return self.actions.shape[1]
-
-
-def obs_batch(scene, cfg: EnvConfig, render_state):
-    """The policy observation of a render-state batch: the 3-channel BEV
-    (``obs_mode="bev"``) or the 6-channel one (``"bev6"``)."""
-    if cfg.obs_mode == "bev":
-        return render_bev_batch_auto(scene, cfg, render_state)
-    if cfg.obs_mode == "bev6":
-        return render_bev6_batch_auto(scene, cfg, render_state)
-    raise NotImplementedError(
-        f"obs_mode {cfg.obs_mode!r} is not ported yet (only 'bev', 'bev6')"
-    )
 
 
 def stack_states(states: List):
@@ -84,15 +47,10 @@ def collect_rollout(
     ``action_noise`` (n_steps, N, 2) optionally supplies the standard
     normal action draws and ``env_draws`` (one ``StepDraws`` per step) the
     environment's; ``generator`` draws whatever is not supplied."""
-    if store_obs:
-        raise NotImplementedError(
-            "store_obs=True needs the bit-packed observation store, which "
-            "is not ported yet"
-        )
     st, metrics, render = env_states, metrics0, render0
     tr = {k: [] for k in ("metrics", "render", "action", "logp", "value",
                           "reward", "done", "ep_reward", "ep_length",
-                          "completed")}
+                          "completed", "obs")}
     for t in range(n_steps):
         obs = obs_batch(scene, cfg, render)
         value, action, logp = policy_mod.act(
@@ -101,6 +59,8 @@ def collect_rollout(
         )
         draws = {} if env_draws is None else env_draws[t]._asdict()
         st2, out = step_batch(scene, cfg, st, action, generator, **draws)
+        if store_obs:
+            tr["obs"].append(store_encode(cfg, obs))
         tr["metrics"].append(metrics)
         tr["render"].append(render)
         tr["action"].append(action)
@@ -116,13 +76,16 @@ def collect_rollout(
     # bootstrap value for the final obs (tools/learn.py:137-139)
     obs_f = obs_batch(scene, cfg, render)
     value_f, _, _ = policy_mod.act(net, obs_f, metrics, deterministic=True)
+    obs_all = None
+    if store_obs:
+        obs_all = torch.stack(tr["obs"] + [store_encode(cfg, obs_f)])
 
     done = torch.stack(tr["done"])
     masks = 1.0 - done.to(torch.float32)
     rollout = Rollout(
         render=stack_states(tr["render"] + [render]),
         metrics=torch.stack(tr["metrics"] + [metrics]),
-        obs=None,
+        obs=obs_all,
         actions=torch.stack(tr["action"]),
         logp=torch.stack(tr["logp"]),
         values=torch.stack(tr["value"] + [value_f]),

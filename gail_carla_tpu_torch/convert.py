@@ -1,12 +1,13 @@
-"""Policy parameters: flax layout -> the port's ``PolicyNet``, and a
-numpy-seeded initialiser for runs without JAX.
+"""Policy and critic parameters: flax layout -> the port's ``PolicyNet``
+and ``DiscriminatorNet``, and numpy-seeded initialisers for runs without
+JAX.
 
 Flax keeps ``{"params": {"ObsEncoder_0": {"Conv_i": ...},
-"MetricsEncoder_0": {"Embed_0": ...}, "Dense_0".."Dense_4": ...}}`` as
+"MetricsEncoder_0": {"Embed_0": ...}, "Dense_0".."Dense_<k>": ...}}`` as
 nested dicts of arrays. Conv kernels are HWIO and become OIHW; Dense
 kernels are (in, out) and become ``nn.Linear`` weights (out, in).
 ``Dense_0`` consumes the NHWC flatten of the conv features, which the
-port's ``ObsEncoder`` reproduces.
+port's ``ObsEncoder`` reproduces (the critic's also takes the action).
 """
 from __future__ import annotations
 
@@ -17,15 +18,18 @@ import torch
 
 from gail_carla_tpu_torch.config import ModelConfig
 from gail_carla_tpu_torch.device import resolve_device
+from gail_carla_tpu_torch.models.discriminator import DiscriminatorNet
 from gail_carla_tpu_torch.models.policy import PolicyNet
 from gail_carla_tpu_torch.models.processors import conv_out_width
 
-N_DENSE = 5   # 3 body layers, head, value/mean output
+# the flax Dense_i layers, in order, as the port's modules name them
+POLICY_DENSE = ("body.0", "body.1", "body.2", "head", "out")
+CRITIC_DENSE = ("hidden", "out")
 
 
-def flax_to_state_dict(params: Mapping, cfg: ModelConfig) -> Dict:
-    """``PolicyNet.state_dict()`` entries from flax policy params (the
-    ``{"params": ...}`` tree or its inner dict, leaves array-like)."""
+def _state_dict(params: Mapping, cfg: ModelConfig, dense_names) -> Dict:
+    """State-dict entries of the encoders and of the Dense layers, which
+    become the modules named ``dense_names`` in order."""
     p = params.get("params", params)
 
     def t(a):
@@ -40,12 +44,22 @@ def flax_to_state_dict(params: Mapping, cfg: ModelConfig) -> Dict:
     sd["met_enc.embed.weight"] = t(
         p["MetricsEncoder_0"]["Embed_0"]["embedding"]
     )
-    names = [f"body.{i}" for i in range(3)] + ["head", "out"]
-    for i, name in enumerate(names):
+    for i, name in enumerate(dense_names):
         dense = p[f"Dense_{i}"]
         sd[f"{name}.weight"] = t(dense["kernel"]).T.contiguous()
         sd[f"{name}.bias"] = t(dense["bias"])
     return sd
+
+
+def flax_to_state_dict(params: Mapping, cfg: ModelConfig) -> Dict:
+    """``PolicyNet.state_dict()`` entries from flax policy params (the
+    ``{"params": ...}`` tree or its inner dict, leaves array-like)."""
+    return _state_dict(params, cfg, POLICY_DENSE)
+
+
+def critic_state_dict(params: Mapping, cfg: ModelConfig) -> Dict:
+    """``DiscriminatorNet.state_dict()`` entries from flax critic params."""
+    return _state_dict(params, cfg, CRITIC_DENSE)
 
 
 def policy_from_flax(params: Mapping, cfg: ModelConfig,
@@ -70,11 +84,13 @@ def _lecun_normal(rng: np.random.Generator, shape, fan_in: int):
     return (x * std).astype(np.float32)
 
 
-def init_flax_params(cfg: ModelConfig, obs_shape=(3, 192, 192),
-                     seed: int = 0) -> Dict:
-    """Flax-layout policy params drawn with numpy from ``seed``, with
-    flax's default initialisers (lecun normal kernels, zero biases,
-    embeddings of variance 1/features)."""
+def _init_params(cfg: ModelConfig, obs_shape, seed: int, extra_in: int,
+                 dense_out) -> Dict:
+    """Flax-layout params of the encoders and the Dense layers of widths
+    ``dense_out``, drawn with numpy from ``seed`` with flax's default
+    initialisers (lecun normal kernels, zero biases, embeddings of
+    variance 1/features). ``Dense_0`` takes the NHWC flatten of the conv
+    features, the metrics features and ``extra_in`` more inputs."""
     rng = np.random.default_rng(seed)
     c, _, w = obs_shape
     p = {"ObsEncoder_0": {}}
@@ -89,9 +105,9 @@ def init_flax_params(cfg: ModelConfig, obs_shape=(3, 192, 192),
         rng.standard_normal((cfg.max_road_options, cfg.cmd_embed_dim))
         / np.sqrt(cfg.cmd_embed_dim)).astype(np.float32)}}
     side = conv_out_width(w, len(cfg.conv_channels))
-    dims = [side * side * cfg.conv_channels[-1] + 5 + cfg.cmd_embed_dim]
-    dims += [cfg.hidden_size] * 3 + [cfg.head_size, 3]
-    for i in range(N_DENSE):
+    dims = [side * side * cfg.conv_channels[-1] + 5 + cfg.cmd_embed_dim
+            + extra_in] + list(dense_out)
+    for i in range(len(dense_out)):
         p[f"Dense_{i}"] = {
             "kernel": _lecun_normal(rng, (dims[i], dims[i + 1]), dims[i]),
             "bias": np.zeros((dims[i + 1],), np.float32),
@@ -99,8 +115,32 @@ def init_flax_params(cfg: ModelConfig, obs_shape=(3, 192, 192),
     return {"params": p}
 
 
+def init_flax_params(cfg: ModelConfig, obs_shape=(3, 192, 192),
+                     seed: int = 0) -> Dict:
+    """Flax-layout policy params drawn with numpy from ``seed``."""
+    return _init_params(cfg, obs_shape, seed, 0,
+                        [cfg.hidden_size] * 3 + [cfg.head_size, 3])
+
+
+def init_critic_flax_params(cfg: ModelConfig, obs_shape=(3, 192, 192),
+                            seed: int = 0) -> Dict:
+    """Flax-layout critic params drawn with numpy from ``seed``; its
+    ``Dense_0`` also takes the 2 action inputs."""
+    return _init_params(cfg, obs_shape, seed, 2, [cfg.disc_hidden, 1])
+
+
 def init_policy(cfg: ModelConfig, obs_shape=(3, 192, 192), seed: int = 0,
                 device="cuda") -> PolicyNet:
     """A numpy-seeded ``PolicyNet`` on ``device``."""
     return policy_from_flax(init_flax_params(cfg, obs_shape, seed), cfg,
                             obs_shape, device)
+
+
+def critic_from_flax(params: Mapping, cfg: ModelConfig,
+                     obs_shape=(3, 192, 192), device="cuda"
+                     ) -> DiscriminatorNet:
+    """A ``DiscriminatorNet`` on ``device`` holding the given flax params."""
+    dev = resolve_device(device)
+    net = DiscriminatorNet(cfg, obs_shape)
+    net.load_state_dict(critic_state_dict(params, cfg))
+    return net.to(dev)

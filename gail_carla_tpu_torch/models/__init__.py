@@ -1,1 +1,1 @@
-"""Policy network and its input processors."""
+"""Policy network, WDGAIL critic and their input processors."""

@@ -1,7 +1,9 @@
 """The preset shapes of ``gail_carla_tpu/train.py`` (``make_presets``,
-``train.py:49-110``), for the port's entry points and tests. The
-training loop (``run``) comes with the training slice; the town presets
-need the town importers, which are not ported yet."""
+``train.py:49-110``), for the port's entry points and tests. One
+training update is ``algo/learner.py::WDGAILLearner.update``; the loop
+around it (``run``: presets, evaluation, checkpoints) is not ported yet,
+and the town presets need the town importers, which are not ported
+yet either."""
 from __future__ import annotations
 
 from gail_carla_tpu_torch.config import EnvConfig, ModelConfig, TrainConfig

@@ -190,6 +190,89 @@ def test_step_batch_200_steps_matches_jax(scenes, reward_mode,
     assert n_done >= 4
 
 
+# the env modes the other parity tests do not pin: the terminal modes
+# valeo_nodetpx and leaderboard_dagger (with and without NPC traffic),
+# evaluation mode (no route-resume curriculum), the valeo reward emitted
+# beside the training reward, and the valeo reward without the
+# exploration suggestion
+STEP_MODES = {
+    "valeo_nodetpx": dict(reward_mode="valeo", terminal_mode="valeo_nodetpx"),
+    "dagger": dict(terminal_mode="leaderboard_dagger"),
+    "dagger_traffic": dict(terminal_mode="leaderboard_dagger",
+                           n_npc_vehicles=3, n_npc_walkers=3),
+    "eval": dict(train=False),
+    "valeo_reward_info": dict(compute_valeo_reward=True),
+    "no_exploration_suggest": dict(reward_mode="valeo",
+                                   terminal_mode="valeo",
+                                   exploration_suggest=False),
+}
+
+
+@pytest.mark.parametrize("mode", list(STEP_MODES))
+def test_step_batch_modes_match_jax(scenes, mode):
+    """40 steps of 4 envs with 2 s episodes in each mode of
+    ``STEP_MODES``, every draw of the JAX envs injected (reset, GNSS,
+    traffic spawns and crossing coins): the same comparisons as the
+    200-step test, plus the traffic state where there are NPCs."""
+    import jax
+    import jax.numpy as jnp
+    from gail_carla_tpu.sim import env as jax_env
+    from test_torch_traffic import (
+        compare_traffic, jax_batch_reset_draws, jax_step_draws,
+    )
+
+    port_scene, jax_scene = scenes
+    cfg = dataclasses.replace(PRESET["env"], max_time=2.0,
+                              **STEP_MODES[mode])
+    n_patrols = port_scene.patrol_xy.shape[0]
+    traffic = cfg.n_npc_vehicles > 0
+    rid = np.array([0, 1, 0, 1], np.int32)
+    n, T = len(rid), 40
+    rng = np.random.default_rng(2)
+    actions = np.stack([rng.uniform(-0.3, 0.3, (T, n)),
+                        rng.uniform(0.2, 1.0, (T, n))], -1).astype(np.float32)
+    actions[:, 2, 0] = 0.9         # steers off the road: collisions
+    actions[10:, 3, 1] = 0.0       # stops: blocked criterion
+
+    key = jax.random.PRNGKey(1)
+    js, jm, _ = jax_env.reset_batch(jax_scene, cfg, key, jnp.asarray(rid))
+    draws, gnss = jax_batch_reset_draws(key, n, cfg, n_patrols)
+    ps, pm, _ = port_env.reset_batch(port_scene, cfg, _t(rid), draws=draws,
+                                     gnss_noise=gnss)
+    _compare_states(js, ps, "reset")
+    np.testing.assert_allclose(pm.numpy(), np.asarray(jm), **TOL)
+
+    step = jax.jit(lambda s, a: jax_env.step_batch(jax_scene, cfg, s, a))
+    n_done = 0
+    for t in range(T):
+        rngs = js.rng
+        js, jout = step(js, jnp.asarray(actions[t]))
+        sd = jax_step_draws(rngs, jout.done, cfg, n_patrols)
+        ps, pout = port_env.step_batch(port_scene, cfg, ps, _t(actions[t]),
+                                       **sd._asdict())
+        _compare_states(js, ps, f"step {t}")
+        if traffic:
+            compare_traffic(js.traffic, ps.traffic, f"step {t}")
+        np.testing.assert_array_equal(pout.done.numpy(),
+                                      np.asarray(jout.done))
+        np.testing.assert_allclose(pout.reward.numpy(),
+                                   np.asarray(jout.reward), **TOL)
+        np.testing.assert_allclose(pout.metrics.numpy(),
+                                   np.asarray(jout.metrics), **TOL)
+        assert set(pout.info) == set(jout.info)
+        for k, v in jout.info.items():
+            v = np.asarray(v)
+            if v.dtype.kind in "biu":
+                np.testing.assert_array_equal(
+                    pout.info[k].numpy(), v, err_msg=f"{k} at step {t}")
+            else:
+                np.testing.assert_allclose(
+                    pout.info[k].numpy(), v, err_msg=f"{k} at step {t}",
+                    **TOL)
+        n_done += int(pout.done.sum())
+    assert n_done >= 4
+
+
 def test_local_planner_act_matches_jax(scenes):
     """The NPCs' LocalPlanner on the patrol tables, (4 envs, 3 vehicles)
     at once, for 40 calls: the PIDs' 30-sample ring buffer wraps, and the

@@ -119,12 +119,39 @@ def _port_render(render, t):
     })
 
 
-def test_collect_rollout_refuses_stored_obs(setup):
-    port_scene, _, _, _, port_net = setup
-    st, met, ren = reset_batch(port_scene, ENV, torch.tensor([0]))
-    with pytest.raises(NotImplementedError, match="store_obs"):
-        collect_rollout(port_scene, ENV, port_net, st, met, ren, None, 1,
-                        store_obs=True)
+def test_collect_rollout_stored_obs_matches_jax(setup):
+    """``collect_rollout(store_obs=True)``: the bit-packed store of every
+    step's observation and of the bootstrap's equals JAX's byte for byte,
+    over a window that ends before the first observation that differs
+    (step 36 of this rollout, see ``test_collect_rollout_matches_jax``)."""
+    import jax
+    import jax.numpy as jnp
+    from gail_carla_tpu.algo.rollout import collect_rollout as jax_collect
+    from gail_carla_tpu.sim.env import reset_batch as jax_reset
+
+    port_scene, jax_scene, net, params, port_net = setup
+    rid = np.array([0, 1, 0, 1], np.int32)
+    n_steps = 30
+    key = jax.random.PRNGKey(5)
+    st, met, ren = jax_reset(jax_scene, ROLL_ENV, key, jnp.asarray(rid))
+    ro = jax_collect(jax_scene, ROLL_ENV, net, params, st, met, ren, key,
+                     n_steps, store_obs=True)[3]
+    noise = np.stack([np.asarray(jax.random.normal(k, (len(rid), 2)))
+                      for k in jax.random.split(key, n_steps)])
+
+    pst, pmet, pren = reset_batch(port_scene, ROLL_ENV, torch.from_numpy(rid))
+    pro = collect_rollout(port_scene, ROLL_ENV, port_net, pst, pmet, pren,
+                          None, n_steps, store_obs=True,
+                          action_noise=torch.from_numpy(noise))[3]
+    want = np.asarray(ro.obs)
+    assert pro.obs.dtype == torch.uint8
+    assert pro.obs.shape == want.shape == (n_steps + 1, len(rid), 64, 64)
+    np.testing.assert_array_equal(pro.obs.numpy(), want)
+    # the store holds road, route and both lane levels, and episodes
+    # ended inside the window
+    assert (want & 1).any() and (want & 2).any()
+    assert set(np.unique((want >> 2) & 3).tolist()) == {0, 1, 2}
+    assert int((1.0 - pro.masks[1:]).sum()) >= 4
 
 
 def test_evaluate_policy_matches_jax(setup):
