@@ -12,19 +12,23 @@ preset (the 4x4 grid town with 10 routes, 192 px BEV, convs
 32-64-128-256, hidden 512, bfloat16 convs, random weights from a numpy
 seed), each through the entry points a user calls: deterministic
 evaluation on the held-out route and a rollout, and on the ``"bev"`` path
-two WDGAIL training updates.
+the training entry point ``train.run``.
 
 - the ``"bev"`` path: 3-channel observation, no traffic, kernel
   ``bev_raster`` (the TPU kernel ``ops/bev_pallas.py``);
 - the ``"bev6"`` path: 6-channel observation with 20 NPC vehicles and 50
   walkers per env (NoCrash "regular" Town01 densities), kernel
   ``bev6_raster`` (the TPU kernel ``ops/bev6_pallas.py``);
-- the ``"train bev"`` path: ``WDGAILLearner.update`` at the reference
-  preset (10 envs x 720 steps, the packed observation store, critic epochs
-  6 then 5 with the gradient penalty, 16 PPO epochs of 128-sample
-  minibatches) against a stand-in expert buffer of 7,200 rows rolled out
-  by a second random policy; its per-part breakdown (CUDA events), each
-  update's wall time and B1's launches per update.
+- the ``"train bev"`` path: ``train.run`` at the reference preset: the
+  scripted expert's demos with noise (``generate_demos``) on the 9
+  training routes and the held-out route, the expert and validation
+  buffers, two updates (10 envs x 720 steps, the packed observation
+  store, critic epochs 6 then 5 with the gradient penalty, 16 PPO epochs
+  of 128-sample minibatches), the evaluation on the held-out route, the
+  metrics log and the checkpoints; the demos' ms per step and valid rows
+  per route, each update's wall time, its per-part breakdown (CUDA
+  events) and B1's launches per part of the run. The last checkpoint must
+  restore on the card bit for bit.
 
 Each kernel is checked against its plain version on the same render
 states of the rollout's 256 envs, at W=192 and W=100, with envs placed on
@@ -38,10 +42,11 @@ operations of the pixel-item pairs within reach over the float32 peak
 (``pair_counts``). The outputs of its first and last launch on the timed
 inputs are held against the plain version's too, and the observation
 store's pack/unpack round trip of each kernel's output must change 0
-values. A float32 update at the smoke preset runs on the card and on the
-CPU with the same draws and must agree within the CPU tests' tolerances;
-a minibatch fetched from the training path's packed store must equal its
-re-render through B1.
+values. A float32 update at the smoke preset and the scripted expert's
+demos with signals and traffic run on the card and on the CPU with the
+same draws and must agree within the CPU tests' tolerances; a minibatch
+fetched from the training path's packed store must equal its re-render
+through B1.
 
 It prints one progress line per phase (with ``ptxas``'s registers,
 shared memory and spills of each build), a per-step time breakdown of
@@ -60,21 +65,26 @@ import dataclasses
 import json
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 
 from gail_carla_tpu_torch import cuda_build
+from gail_carla_tpu_torch import train as train_mod
 from gail_carla_tpu_torch.algo import learner as learner_mod
 from gail_carla_tpu_torch.algo import ppo as ppo_mod
 from gail_carla_tpu_torch.algo import wdgail as wdgail_mod
 from gail_carla_tpu_torch.algo.buffers import (
+    EXPERT_CHUNK,
     build_expert_buffer, fetch_rollout_obs, map_state, pack_bev_obs,
     unpack_bev_obs,
 )
 from gail_carla_tpu_torch.algo.evaluate import evaluate_policy
-from gail_carla_tpu_torch.algo.expert import DemoBatch
+from gail_carla_tpu_torch.algo.expert import (
+    DemoBatch, DemoDraws, draw_demos, generate_demos,
+)
 from gail_carla_tpu_torch.algo.learner import UpdateDraws, WDGAILLearner
 from gail_carla_tpu_torch.algo.rollout import collect_rollout
 from gail_carla_tpu_torch.config import EnvConfig, ModelConfig
@@ -93,6 +103,8 @@ from gail_carla_tpu_torch.sim.env import (
 )
 from gail_carla_tpu_torch.sim.traffic import step_traffic
 from gail_carla_tpu_torch.train import make_presets
+from gail_carla_tpu_torch.utils import checkpoint as ckpt_mod
+from gail_carla_tpu_torch.utils.logging import TAG_MAP
 
 KERNEL_SOURCES = ("bev_raster.cu", "bev6_raster.cu")
 # NoCrash "regular" Town01 traffic (gail_carla_tpu/envs/suites.py:40-46)
@@ -100,10 +112,19 @@ N_VEHICLES, N_WALKERS = 20, 50
 # depth of each path: evaluation on the held-out route, then a rollout
 EVAL_ROUTE, EVAL_ENVS, EVAL_STEPS = 3, 16, 200
 ROLL_ENVS, ROLL_STEPS = 256, 32
-# the training phase: updates of WDGAILLearner at the reference preset
-# (TrainConfig(n_envs=10): 720 steps per env), a stand-in expert buffer
-# capped at 7,200 rows and a validation buffer of 1,024 rows
-TRAIN_UPDATES, EXPERT_ROWS, VAL_ROWS = 2, 7200, 1024
+# the training phase: train.run at the reference preset (TrainConfig(
+# n_envs=10): 720 steps per env), cut to TRAIN_UPDATES updates and
+# DEMO_STEPS expert steps per route (the preset's 4,000 cut: on the CPU
+# with the same seeds every training route's first episode ends by step
+# 1,487 and route 3's by 1,166; the card draws another stream, hence the
+# margin)
+TRAIN_UPDATES, DEMO_STEPS = 2, 1600
+# the card-vs-CPU update's expert demos: route 0 of the smoke scene ends
+# its first episode near step 520
+SMOKE_DEMO_STEPS = 600
+# card-vs-CPU demos: actions, metrics and positions (closed loop, 200
+# steps, float32 sin/cos of the two devices)
+DEMO_TOL = 1e-4
 # the card-vs-CPU update at the smoke preset: 16 steps per env
 SMOKE_STEPS_PER_ENV = 16
 # the CPU tests' tolerances (tests/test_torch_learner.py): losses and aux
@@ -484,6 +505,14 @@ def card_vs_cpu(scene, cfg: EnvConfig, obs_shape, seed: int):
         raise AssertionError("card and CPU rollouts disagree")
 
 
+def eval_steps_run(ev, max_steps: int) -> int:
+    """The steps ``evaluate_policy`` ran: it stops once every env's first
+    episode has ended, at the longest first episode."""
+    if bool(ev["done"].all()):
+        return int(ev["length"].max())
+    return max_steps
+
+
 def drive_path(scene, cfg: EnvConfig, net, gen, routes, lib):
     """The path's entry points with every launch count set to 0 just
     before: evaluation (``EVAL_ENVS`` envs x ``EVAL_STEPS`` steps on route
@@ -500,8 +529,9 @@ def drive_path(scene, cfg: EnvConfig, net, gen, routes, lib):
     torch.cuda.synchronize()
     if not torch.isfinite(ev["reward"]).all():
         raise AssertionError("non-finite evaluation reward")
+    eval_steps = eval_steps_run(ev, EVAL_STEPS)
     print(f"  evaluate_policy {cfg.obs_mode} route {EVAL_ROUTE}, {EVAL_ENVS} "
-          f"envs x {EVAL_STEPS} steps: "
+          f"envs x {EVAL_STEPS} steps (stopped after {eval_steps}): "
           f"{int(ev['done'].sum())} episodes ended, mean score_route "
           f"{float(ev['score_route'].float().mean()):.3f}, collisions "
           f"{int(ev['collision'].sum())}", flush=True)
@@ -527,10 +557,10 @@ def drive_path(scene, cfg: EnvConfig, net, gen, routes, lib):
             raise AssertionError(f"non-finite rollout {name}")
     if ro.values.shape != (n_steps + 1, n_envs):
         raise AssertionError(f"rollout values shape {tuple(ro.values.shape)}")
-    if eval_launches != EVAL_STEPS or roll_launches != n_steps + 1:
+    if eval_launches != eval_steps or roll_launches != n_steps + 1:
         raise AssertionError(
             f"kernel launches {eval_launches} + {roll_launches} != renders "
-            f"issued {EVAL_STEPS} + {n_steps + 1}"
+            f"issued {eval_steps} + {n_steps + 1}"
         )
     if any(o.launches for o in libs if o is not lib):
         raise AssertionError("a kernel of the other path was launched")
@@ -575,21 +605,6 @@ def breakdown(scene, cfg: EnvConfig, net, gen, start, render_fn):
           f"steps: {n_envs * n_steps / (time.time() - t_roll):.1f} "
           f"env-steps/s", flush=True)
     progress(f"breakdown {cfg.obs_mode}", t)
-
-
-def stand_in_demos(scene, cfg: EnvConfig, model_cfg: ModelConfig,
-                   route_ids, n_steps: int, gen) -> DemoBatch:
-    """Demos from a rollout of a second numpy-seeded policy, every step
-    valid: the stand-in for the scripted expert's demos, which are not
-    ported yet."""
-    net = init_policy(model_cfg, (3, cfg.bev_width, cfg.bev_width),
-                      seed=SEED + 7, device=scene.device)
-    st, met, ren = reset_batch(scene, cfg, route_ids, gen)
-    ro = collect_rollout(scene, cfg, net, st, met, ren, gen, n_steps)[3]
-    return DemoBatch(map_state(lambda a: a[:-1], ro.render),
-                     ro.metrics[:-1], ro.actions,
-                     torch.ones(ro.actions.shape[:2], dtype=torch.bool,
-                                device=scene.device))
 
 
 def demos_to(demos: DemoBatch, dev) -> DemoBatch:
@@ -660,70 +675,112 @@ def check_finite(what: str, metrics: dict, nets) -> None:
         raise AssertionError(f"{what}: non-finite {bad}")
 
 
-def train_path(scene, env_cfg: EnvConfig, model_cfg: ModelConfig, tcfg,
-               gen):
-    """The training path at the reference preset: a stand-in expert and
-    validation buffer, then ``TRAIN_UPDATES`` calls of
-    ``WDGAILLearner.update`` with the packed observation store. Every
-    launch count is set to 0 just before the updates and read just after;
-    raises unless B1 ran once per render (each step and the bootstrap),
-    B2 never, and every loss, aux value and parameter is finite. Prints
-    each update's wall time and its per-part breakdown. Returns B1's
-    launches."""
-    dev = scene.device
-    t = time.time()
-    n, steps = tcfg.n_envs, tcfg.steps_per_env
-    routes = torch.tensor(tcfg.routes, device=dev)
-    train_routes = routes[torch.arange(n, device=dev) % len(routes)]
-    expert = build_expert_buffer(
-        scene, env_cfg, stand_in_demos(scene, env_cfg, model_cfg,
-                                       train_routes, steps, gen),
-        max_size=EXPERT_ROWS)
-    val_routes = torch.full((n,), tcfg.eval_route, device=dev)
-    expert_val = build_expert_buffer(
-        scene, env_cfg, stand_in_demos(scene, env_cfg, model_cfg, val_routes,
-                                       -(-VAL_ROWS // n), gen),
-        max_size=VAL_ROWS)
-    torch.cuda.synchronize()
-    print(f"  stand-in expert: {expert.size} rows ({n} envs x {steps} "
-          f"steps), validation {expert_val.size} rows (route "
-          f"{tcfg.eval_route}), packed obs {tuple(expert.obs.shape)} "
-          f"{expert.obs.dtype}, {time.time() - t:.2f} s", flush=True)
+class RunProbe:
+    """Inside ``with``, the calls ``train.run`` makes to generate demos,
+    build the expert buffers, evaluate and update are timed (host clock,
+    synchronised), with B1's launches counted per call; each update also
+    gets its ``PartTimer`` breakdown and the checks of ``check_update``.
+    Every call's record is kept in ``calls``."""
 
-    learner = WDGAILLearner(scene, env_cfg, model_cfg, tcfg, expert,
-                            expert_val, store_obs=True)
-    state = learner.init_state()
-    libs = (bev_cuda.LIB, bev6_cuda.LIB)
-    for lib in libs:
-        lib.launches = 0
-    timer = PartTimer()
-    total = n * steps
-    n_mb_disc = min(expert.size, total) // tcfg.gail_batch_size
-    n_mb_ppo = tcfg.ppo_epoch * (total // tcfg.mini_batch_size)
-    for _ in range(TRAIN_UPDATES):
-        before = bev_cuda.LIB.launches
-        n_epochs = wdgail_mod.warmup_epochs(tcfg, state.update_i + 1)
-        torch.cuda.synchronize()
-        t_up = time.time()
-        with timer:
-            state, metrics = learner.update(state)
-        torch.cuda.synchronize()
-        wall = time.time() - t_up
-        parts = timer.ms()
-        ro = timer.last["rollout"][3]
-        launches = bev_cuda.LIB.launches - before
+    def __init__(self, tcfg, timer: "PartTimer"):
+        self.tcfg, self.timer = tcfg, timer
+        self.calls, self._saved = [], []
+
+    def _wrap(self, owner, attr, kind):
+        fn = getattr(owner, attr)
+
+        def probed(*args, **kwargs):
+            torch.cuda.synchronize()
+            before, t = bev_cuda.LIB.launches, time.time()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            rec = {"kind": kind, "s": time.time() - t, "out": out,
+                   "b1": bev_cuda.LIB.launches - before, "args": args,
+                   "kwargs": kwargs}
+            if kind == "update":
+                rec["parts"] = self.timer.ms()
+            self.calls.append(rec)
+            report_call(rec, self.tcfg)
+            return out
+
+        self._saved.append((owner, attr, fn))
+        setattr(owner, attr, probed)
+
+    def __enter__(self):
+        self._wrap(train_mod, "generate_demos", "demos")
+        self._wrap(train_mod, "build_expert_buffer", "buffer")
+        self._wrap(train_mod, "evaluate_policy", "eval")
+        self._wrap(learner_mod.WDGAILLearner, "update", "update")
+        return self
+
+    def __exit__(self, *exc):
+        for owner, attr, fn in reversed(self._saved):
+            setattr(owner, attr, fn)
+        self._saved.clear()
+
+    def of(self, kind):
+        return [c for c in self.calls if c["kind"] == kind]
+
+
+def report_call(rec, tcfg):
+    """Prints one probed call of ``train.run`` and raises on a failed
+    check: a training or held-out route without a valid demo row, an
+    update whose B1 launches are not one per render, B2 launched, or a
+    non-finite metric or weight."""
+    kind, out = rec["kind"], rec["out"]
+    if kind == "demos":
+        routes = [int(r) for r in rec["args"][3]]
+        n_steps = rec["args"][4]
+        rows = out.valid.sum(0).tolist()
+        step = out.render.step.cpu().numpy()
+        ends = [int(np.argmax(step[1:, e] == 0)) + 1
+                if (step[1:, e] == 0).any() else -1
+                for e in range(len(routes))]
+        print(f"  generate_demos {len(routes)} envs x {n_steps} steps: "
+              f"{rec['s']:.3f} s, {rec['s'] * 1e3 / n_steps:.3f} ms per "
+              f"step; valid rows per route "
+              + ", ".join(f"{r}: {v}" for r, v in zip(routes, rows))
+              + "; first episode ends at steps "
+              + ", ".join(f"{r}: {e}" for r, e in zip(routes, ends)),
+              flush=True)
+        empty = [r for r, v in zip(routes, rows) if v == 0]
+        if empty:
+            raise AssertionError(f"routes {empty} have no valid demo row: "
+                                 f"raise DEMO_STEPS")
+    elif kind == "buffer":
+        print(f"  build_expert_buffer: {out.size} rows, {rec['s']:.3f} s, "
+              f"B1 launches {rec['b1']}", flush=True)
+    elif kind == "eval":
+        steps = eval_steps_run(out, rec["kwargs"]["max_steps"])
+        print(f"  evaluate_policy (held-out route {tcfg.eval_route}): "
+              f"{rec['s']:.3f} s, stopped after {steps} steps (its episode "
+              f"ended), B1 launches {rec['b1']}, score_route "
+              f"{float(out['score_route'][0]):.3f}", flush=True)
+        if rec["b1"] != steps:
+            raise AssertionError(f"evaluation: B1 launches {rec['b1']} != "
+                                 f"renders issued {steps}")
+    else:
+        state, metrics = out
+        steps = tcfg.steps_per_env
+        total = tcfg.n_envs * steps
+        learner = rec["args"][0]
+        n_epochs = wdgail_mod.warmup_epochs(tcfg, state.update_i)
+        n_mb_disc = min(learner.expert.size, total) // tcfg.gail_batch_size
+        n_mb_ppo = tcfg.ppo_epoch * (total // tcfg.mini_batch_size)
+        parts = rec["parts"]
         check_finite(f"update {state.update_i}", metrics,
                      (("policy", state.policy), ("critic", state.disc)))
-        if launches != steps + 1:
+        if rec["b1"] != steps + 1:
             raise AssertionError(f"update {state.update_i}: B1 launches "
-                                 f"{launches} != renders issued {steps + 1}")
+                                 f"{rec['b1']} != renders issued "
+                                 f"{steps + 1}")
         if bev6_cuda.LIB.launches:
             raise AssertionError("B2 was launched on the bev training path")
         disc_mb = parts["disc_update"] / (n_epochs * n_mb_disc)
-        print(f"  update {state.update_i} ({n} envs x {steps} steps, "
-              f"{n_epochs} critic epochs x {n_mb_disc} minibatches, "
-              f"{n_mb_ppo} PPO minibatches): wall {wall:.3f} s; B1 launches "
-              f"{launches}; " + ", ".join(
+        print(f"  update {state.update_i} ({tcfg.n_envs} envs x {steps} "
+              f"steps, {n_epochs} critic epochs x {n_mb_disc} minibatches, "
+              f"{n_mb_ppo} PPO minibatches): wall {rec['s']:.3f} s; B1 "
+              f"launches {rec['b1']}; " + ", ".join(
                   f"{k} {v:.1f} ms" for k, v in parts.items())
               + f"; disc_update {disc_mb:.3f} ms per minibatch, ppo_update "
               f"{parts['ppo_update'] / n_mb_ppo:.3f} ms per minibatch",
@@ -731,9 +788,59 @@ def train_path(scene, env_cfg: EnvConfig, model_cfg: ModelConfig, tcfg,
         print("  update {} metrics: {}".format(state.update_i, ", ".join(
             f"{k} {float(v):.5g}" for k, v in sorted(metrics.items()))),
             flush=True)
-    launches = bev_cuda.LIB.launches
 
-    # the packed store against a re-render of one minibatch through B1
+
+def train_path(env_cfg: EnvConfig, model_cfg: ModelConfig, tcfg, preset,
+               dev):
+    """The training path at the reference preset through ``train.run``:
+    the scripted expert's demos (``DEMO_STEPS`` steps on the training
+    routes and on the held-out route), the expert and validation buffers,
+    ``TRAIN_UPDATES`` updates with the packed observation store, the
+    evaluation on the held-out route, the metrics log and the checkpoints,
+    in a temporary directory. Every launch count is set to 0 just before
+    ``run`` and read just after. Raises unless B1 ran once per render of
+    each update, B2 never, every loss, aux value and parameter is finite,
+    a stored minibatch equals its re-render, the last ``update_*``
+    checkpoint restores into a fresh template on the card bit for bit
+    (generator state included) and ``metrics.jsonl`` holds one row per
+    update with the reference's tag keys. Returns B1's launches."""
+    timer = PartTimer()
+    with tempfile.TemporaryDirectory() as tmp:
+        log_dir, ckpt_dir = f"{tmp}/log", f"{tmp}/ckpt"
+        for lib in (bev_cuda.LIB, bev6_cuda.LIB):
+            lib.launches = 0
+        with RunProbe(tcfg, timer) as probe, timer:
+            state, _ = train_mod.run(
+                env_cfg, model_cfg, tcfg, preset["scene"], DEMO_STEPS,
+                max_updates=TRAIN_UPDATES, log_dir=log_dir,
+                ckpt_dir=ckpt_dir, device=dev)
+        torch.cuda.synchronize()
+        launches = bev_cuda.LIB.launches
+        if bev6_cuda.LIB.launches:
+            raise AssertionError("B2 was launched on the bev training path")
+        updates = probe.of("update")
+        if len(updates) != TRAIN_UPDATES:
+            raise AssertionError(f"{len(updates)} updates ran")
+        per = {k: sum(c["b1"] for c in probe.of(k))
+               for k in ("buffer", "update", "eval")}
+        expert, expert_val = (c["out"] for c in probe.of("buffer"))
+        print(f"  B1 launches in train.run: {launches} = expert buffers "
+              f"{per['buffer']} ({expert.size} + {expert_val.size} rows, "
+              f"{EXPERT_CHUNK}-row chunks) + updates {per['update']} + "
+              f"evaluation {per['eval']}", flush=True)
+        if launches != sum(per.values()):
+            raise AssertionError("B1 launched outside the probed calls")
+        check_stored_minibatch(timer.last["rollout"][3], env_cfg, tcfg,
+                               updates[-1]["args"][0].scene)
+        check_checkpoint(updates[-1]["args"][0], state, ckpt_dir, log_dir)
+    return launches
+
+
+def check_stored_minibatch(ro, env_cfg: EnvConfig, tcfg, scene):
+    """The packed store against a re-render of one minibatch through B1:
+    raises unless 0 values differ."""
+    dev = scene.device
+    n, total = tcfg.n_envs, tcfg.n_envs * tcfg.steps_per_env
     g = torch.Generator(device=dev)
     g.manual_seed(SEED)
     idx = torch.randperm(total, generator=g, device=dev)[
@@ -749,15 +856,107 @@ def train_path(scene, env_cfg: EnvConfig, model_cfg: ModelConfig, tcfg,
           f"store {tuple(ro.obs.shape)} {ro.obs.dtype}", flush=True)
     if diff != 0:
         raise AssertionError("the packed store and a re-render differ")
-    return launches
+
+
+def check_checkpoint(learner, state, ckpt_dir: str, log_dir: str):
+    """The newest ``update_*`` checkpoint restored into a fresh
+    ``LearnerState`` template on the card must equal the run's last state
+    bit for bit (every tensor, the generator's state, the counters); the
+    metrics log must hold one row per update with every key of the
+    reference's tag schema."""
+    t = time.time()
+    latest = ckpt_mod.latest_checkpoint(ckpt_dir)
+    template = learner.init_state()
+    restored, elapsed = ckpt_mod.restore_checkpoint(latest, template)
+    want = ckpt_mod.to_saved(state)
+    got = ckpt_mod.to_saved(restored)
+    n_tensors, bad = 0, []
+
+    def walk(a, b, path):
+        nonlocal n_tensors
+        if isinstance(a, dict):
+            for k in a:
+                walk(a[k], b[k], f"{path}/{k}")
+        elif isinstance(a, list):
+            for i, (x, y) in enumerate(zip(a, b)):
+                walk(x, y, f"{path}[{i}]")
+        elif isinstance(a, torch.Tensor):
+            n_tensors += 1
+            if a.dtype != b.dtype or not torch.equal(a, b):
+                bad.append(path)
+        elif a != b:
+            bad.append(path)
+
+    walk(want, got, "")
+    rows = [json.loads(line) for line in open(f"{log_dir}/metrics.jsonl")]
+    missing = [sorted(set(TAG_MAP) - set(r)) for r in rows]
+    print(f"  checkpoint {latest.rsplit('/', 1)[-1]} restored on the card: "
+          f"{n_tensors} tensors, {len(bad)} differ (generator state "
+          f"included), elapsed {elapsed:.1f} s; metrics.jsonl {len(rows)} "
+          f"rows (steps {[r['step'] for r in rows]}), tag keys missing "
+          f"{missing}; {time.time() - t:.2f} s", flush=True)
+    if bad:
+        raise AssertionError(f"restored checkpoint differs at {bad[:5]}")
+    if ([r["step"] for r in rows] != list(range(1, TRAIN_UPDATES + 1))
+            or any(missing)):
+        raise AssertionError("metrics.jsonl does not hold one row per "
+                             "update with the tag schema's keys")
+
+
+def demo_draws_to(d: DemoDraws, dev) -> DemoDraws:
+    """The same demo draws on device ``dev``."""
+    return DemoDraws(*(
+        [to_device(e, dev) for e in v] if isinstance(v, list)
+        else to_device(v, dev) for v in d))
+
+
+def demos_card_vs_cpu(seed: int, dev):
+    """``generate_demos`` with noise, ``obey_signals=True``, the bev6 path
+    with 3 NPC vehicles and 3 walkers, 2 envs x 200 steps on the smoke
+    scene, on the card and on the CPU with the same draws (made on the
+    CPU): the only run of the expert's signal and hazard caps on the card.
+    Raises unless actions, metrics and positions agree within
+    ``DEMO_TOL`` and ``valid`` is equal."""
+    smoke = make_presets()["smoke"]
+    cfg = train_mod.demo_config(dataclasses.replace(
+        smoke["env"], obs_mode="bev6", n_npc_vehicles=3, n_npc_walkers=3))
+    n, n_steps = 2, 200
+    cpu = torch.device("cpu")
+    cpu_scene = make_benchmark_scene(**smoke["scene"], device=cpu)
+    gen = torch.Generator()
+    gen.manual_seed(seed)
+    draws = draw_demos(cpu_scene, cfg, n, n_steps, gen)
+    outs = []
+    for d in (dev, cpu):
+        sc = cpu_scene if d == cpu else cpu_scene.to(d)
+        torch.cuda.synchronize()
+        t = time.time()
+        demos = generate_demos(sc, cfg, None, [0, 1], n_steps,
+                               obey_signals=True,
+                               draws=demo_draws_to(draws, d))
+        torch.cuda.synchronize()
+        outs.append((demos, time.time() - t))
+    (g, g_s), (c, c_s) = outs
+    errs = {name: max_abs_diff(getattr(g, name), getattr(c, name))
+            for name in ("actions", "metrics")}
+    errs["xy"] = max_abs_diff(g.render.xy, c.render.xy)
+    same_valid = torch.equal(g.valid.cpu(), c.valid)
+    print(f"  card vs CPU generate_demos (bev6, 3 + 3 NPCs, noise, "
+          f"obey_signals, {n} envs x {n_steps} steps): max |d| "
+          + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+          + f" (limit {DEMO_TOL}); valid equal {same_valid}; card "
+          f"{g_s * 1e3 / n_steps:.3f} ms per step, CPU "
+          f"{c_s * 1e3 / n_steps:.3f} ms per step", flush=True)
+    if max(errs.values()) > DEMO_TOL or not same_valid:
+        raise AssertionError("card and CPU demos disagree")
 
 
 def train_card_vs_cpu(seed: int):
     """One float32 update at the smoke preset (64 px, convs 8-16, 4 envs x
     ``SMOKE_STEPS_PER_ENV`` steps) on the card and on the CPU from the same
-    weights, reset and draws (made on the CPU), with the same stand-in
-    expert rows; raises unless the losses and aux agree within the CPU
-    tests' tolerance and the new weights within ``PARAM_ATOL``."""
+    weights, reset and draws (made on the CPU), with the same expert rows
+    (the scripted expert's); raises unless the losses and aux agree within
+    the CPU tests' tolerance and the new weights within ``PARAM_ATOL``."""
     smoke = make_presets()["smoke"]
     env_cfg, model_cfg = smoke["env"], smoke["model"]
     tcfg = dataclasses.replace(
@@ -770,10 +969,10 @@ def train_card_vs_cpu(seed: int):
     gen = torch.Generator()
     gen.manual_seed(seed)
     cpu_scene = make_benchmark_scene(**smoke["scene"], device=cpu)
-    route_ids = torch.arange(n) % cpu_scene.n_routes
-    # the stand-in expert's demos, rolled out on the CPU
-    demos = stand_in_demos(cpu_scene, env_cfg, model_cfg, route_ids, steps,
-                           gen)
+    # the scripted expert's demos on route 0, made on the CPU; the expert
+    # buffers take their first ``total`` valid rows
+    demos = generate_demos(cpu_scene, train_mod.demo_config(env_cfg), gen,
+                           [0], SMOKE_DEMO_STEPS, with_noise=False)
     e_size = total
     n_mb = min(e_size, total) // tcfg.gail_batch_size
     reset = draw_reset(cpu_scene, env_cfg, n, gen)
@@ -797,7 +996,8 @@ def train_card_vs_cpu(seed: int):
     outs = []
     for d in (torch.device("cuda"), cpu):
         sc = cpu_scene if d == cpu else cpu_scene.to(d)
-        expert = build_expert_buffer(sc, env_cfg, demos_to(demos, d))
+        expert = build_expert_buffer(sc, env_cfg, demos_to(demos, d),
+                                     size=e_size)
         learner = WDGAILLearner(sc, env_cfg, model_cfg, tcfg, expert,
                                 policy_params=pparams, disc_params=dparams)
         state = learner.init_state(reset_draws=to_device(reset, d),
@@ -935,6 +1135,7 @@ def main() -> int:
     card_vs_cpu(scene, dataclasses.replace(env6_cfg, **quiet), (6, w, w),
                 SEED + 1)
     train_card_vs_cpu(SEED + 2)
+    demos_card_vs_cpu(SEED + 3, dev)
     progress("reference", t)
 
     gen = torch.Generator(device=dev)
@@ -955,9 +1156,10 @@ def main() -> int:
     breakdown(scene, env6_cfg, net6, gen, start6,
               bev6_cuda.render_bev6_cuda_batch)
 
-    # --- the training path: WDGAIL updates on the bev path ---
+    # --- the training path: train.run on the bev path ---
     t = time.time()
-    launches += train_path(scene, env_cfg, model_cfg, preset["train"], gen)
+    launches += train_path(env_cfg, model_cfg, preset["train"], preset,
+                           dev)
     progress("train bev", t)
 
     torch.cuda.synchronize()

@@ -45,7 +45,9 @@ def evaluate_policy(
     env_draws: Optional[Sequence[StepDraws]] = None,
 ):
     """Returns a dict of (n_envs,) tensors for the FIRST episode finished
-    in each env (episodes auto-reset; the first done is latched).
+    in each env (episodes auto-reset; the first done is latched). The loop
+    stops once every env has finished one episode, which returns what the
+    full ``max_steps`` would.
 
     Pass either a scalar ``route_id`` (all envs on that route, the
     held-out-route eval) or ``route_ids`` (one env per route).
@@ -85,4 +87,7 @@ def evaluate_policy(
                 first_done, out.info[info_key].to(dt), latched[name]
             )
         metrics, render = out.metrics, out.render
+        # nothing after every env's first episode reaches the result
+        if bool(latched["done"].all()):
+            break
     return latched

@@ -21,6 +21,7 @@ from gail_carla_tpu_torch.device import resolve_device
 from gail_carla_tpu_torch.models.discriminator import DiscriminatorNet
 from gail_carla_tpu_torch.models.policy import PolicyNet
 from gail_carla_tpu_torch.models.processors import conv_out_width
+from gail_carla_tpu_torch.utils.checkpoint import save_checkpoint
 
 # the flax Dense_i layers, in order, as the port's modules name them
 POLICY_DENSE = ("body.0", "body.1", "body.2", "head", "out")
@@ -144,3 +145,13 @@ def critic_from_flax(params: Mapping, cfg: ModelConfig,
     net = DiscriminatorNet(cfg, obs_shape)
     net.load_state_dict(critic_state_dict(params, cfg))
     return net.to(dev)
+
+
+def save_flax_params_checkpoint(params: Mapping, cfg: ModelConfig,
+                                path: str) -> None:
+    """Write a JAX params-only policy checkpoint (the ``{"params": ...}``
+    tree of ``gail_carla_tpu``'s ``best_params``, leaves as numpy arrays)
+    as the port's params-only checkpoint at ``path``, the shape
+    ``train.py --init-params`` reads. Reading the orbax directory itself
+    needs JAX; this function takes the restored tree."""
+    save_checkpoint(path, {"params": flax_to_state_dict(params, cfg)})

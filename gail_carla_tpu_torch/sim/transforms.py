@@ -65,3 +65,13 @@ def deg2rad_f32(deg: float) -> float:
     """``jnp.deg2rad`` of a Python float: the float32 product of the
     float32 degrees and the float32 factor pi/180."""
     return float(np.float32(deg) * np.float32(math.pi / 180.0))
+
+
+def div_const_add(a: torch.Tensor, divisor: float, addend: float):
+    """``a / divisor + addend`` for a float32 ``a`` as XLA compiles it
+    inside jit: the division by a constant becomes a multiply by the
+    float32 reciprocal, fused with the add into one rounding (an FMA).
+    Computed in float64, where the product of two float32 values is exact,
+    then rounded once to float32."""
+    recip = float(np.float32(1.0) / np.float32(divisor))
+    return (a.double() * recip + addend).float()
