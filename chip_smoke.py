@@ -28,7 +28,23 @@ the training entry point ``train.run``.
   metrics log and the checkpoints; the demos' ms per step and valid rows
   per route, each update's wall time, its per-part breakdown (CUDA
   events) and B1's launches per part of the run. The last checkpoint must
-  restore on the card bit for bit.
+  restore on the card bit for bit;
+- the ``"tree bc"`` path, the reference's demo-file recipe at the same
+  widths: ``tools/gen_trajectories`` writes a ``gail_experts/`` PNG tree
+  (10 routes x ``TREE_STEPS`` steps, the 15-channel BEV, three cameras,
+  dynamic weather; ms per step split into env step, full render,
+  cameras and PNG writes), ``tools/learn_bc --experts-dir`` trains BC on
+  it (ms per epoch, losses), ``train.run(demo_tree=...,
+  init_params=<BC's best>)`` takes one update (the warm start must equal
+  BC's best, 0 tensors different) and ``tools/evaluation.evaluate`` runs
+  BC's best on route 3 (both evaluations capped at ``TREE_EVAL_STEPS``
+  steps). B1 runs in the update and the evaluations. The
+  full render at the rollout's 256 envs with a filled history ring is
+  held against B1 (planes 0-2) and B2 (planes 0-2, 14, 6, 10), 0 values
+  differing, and a tree made on the card against one made on the CPU
+  from the same draws (smoke scene, 2 routes x ``CMP_STEPS`` steps):
+  masks equal, cameras within one level, ``episode.json`` within
+  ``DEMO_TOL``.
 
 Each kernel is checked against its plain version on the same render
 states of the rollout's 256 envs, at W=192 and W=100, with envs placed on
@@ -63,6 +79,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import pathlib
 import subprocess
 import sys
 import tempfile
@@ -73,6 +90,7 @@ import torch
 
 from gail_carla_tpu_torch import cuda_build
 from gail_carla_tpu_torch import train as train_mod
+from gail_carla_tpu_torch.algo import bc as bc_mod
 from gail_carla_tpu_torch.algo import learner as learner_mod
 from gail_carla_tpu_torch.algo import ppo as ppo_mod
 from gail_carla_tpu_torch.algo import wdgail as wdgail_mod
@@ -95,16 +113,20 @@ from gail_carla_tpu_torch.models import policy as policy_mod
 from gail_carla_tpu_torch.ops import bev as bev_plain
 from gail_carla_tpu_torch.ops import bev6 as bev6_plain
 from gail_carla_tpu_torch.ops import bev6_cuda, bev_cuda, bev_tiles
-from gail_carla_tpu_torch.ops.bev import ROUTE_HALF_W
-from gail_carla_tpu_torch.ops.bev_full import TL_LINE_HALF_W
+from gail_carla_tpu_torch.ops.bev import INV_255, ROUTE_HALF_W
+from gail_carla_tpu_torch.ops.bev_full import TL_LINE_HALF_W, render_bev_full
 from gail_carla_tpu_torch.scene.scene import make_benchmark_scene
 from gail_carla_tpu_torch.sim.env import (
     RenderState, draw_gnss, draw_reset, draw_step, reset_batch, step_batch,
 )
 from gail_carla_tpu_torch.sim.traffic import step_traffic
+from gail_carla_tpu_torch.tools import evaluation as evaluation_mod
+from gail_carla_tpu_torch.tools import gen_trajectories as gen_mod
+from gail_carla_tpu_torch.tools import learn_bc as learn_bc_mod
 from gail_carla_tpu_torch.train import make_presets
 from gail_carla_tpu_torch.utils import checkpoint as ckpt_mod
 from gail_carla_tpu_torch.utils.logging import TAG_MAP
+from gail_carla_tpu_torch.utils.png import read_png
 
 KERNEL_SOURCES = ("bev_raster.cu", "bev6_raster.cu")
 # NoCrash "regular" Town01 traffic (gail_carla_tpu/envs/suites.py:40-46)
@@ -134,6 +156,16 @@ LOSS_RTOL, LOSS_ATOL, PARAM_ATOL = 1e-4, 1e-6, 2e-5
 # tensor cores, and HBM3 bandwidth
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
+# the tree bc phase: the exporter's depth (routes x steps), BC epochs,
+# the update's steps per env from the tree, the evaluations' step cap,
+# the steps that fill the full render's ring, the card-vs-CPU tree
+# (routes x steps)
+TREE_ROUTES, TREE_STEPS = 10, 32
+BC_EPOCHS = 3
+TREE_UPDATE_STEPS = 64
+TREE_EVAL_STEPS = 300
+RING_STEPS = 22
+CMP_ROUTES, CMP_STEPS = 2, 20
 SEED = 0
 T0 = time.time()
 
@@ -1036,6 +1068,362 @@ def train_card_vs_cpu(seed: int):
         raise AssertionError("card and CPU updates disagree on the weights")
 
 
+# --- the tree bc phase ------------------------------------------------------
+
+class GenTimer:
+    """Inside ``with``, the exporter's calls of the env step, the full
+    render, the three cameras and the PNG writer are timed on the host
+    clock, synchronised at both ends of each call."""
+
+    PARTS = (("step_batch", "env step"), ("render_bev_full", "full render"),
+             ("_cameras", "three cameras"), ("write_png", "PNG writes"))
+
+    def __init__(self):
+        self.s, self._saved = {}, []
+
+    def _wrap(self, fn, label):
+        def timed(*args, **kwargs):
+            torch.cuda.synchronize()
+            t = time.time()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            self.s[label] = self.s.get(label, 0.0) + time.time() - t
+            return out
+        return timed
+
+    def __enter__(self):
+        for attr, label in self.PARTS:
+            fn = getattr(gen_mod, attr)
+            self._saved.append((attr, fn))
+            setattr(gen_mod, attr, self._wrap(fn, label))
+        return self
+
+    def __exit__(self, *exc):
+        for attr, fn in self._saved:
+            setattr(gen_mod, attr, fn)
+        self._saved.clear()
+
+
+class CappedEval:
+    """Inside ``with``, the ``evaluate_policy`` that ``train.run`` and
+    ``tools/evaluation.py`` call runs at most ``TREE_EVAL_STEPS`` steps
+    (a depth cut: a BC policy may drive its episode to the 2,400-step
+    cap); each call's result and the steps it ran are kept."""
+
+    OWNERS = (train_mod, evaluation_mod)
+
+    def __init__(self):
+        self.calls, self._saved = [], []
+
+    def _wrap(self, fn):
+        def capped(*args, **kwargs):
+            kwargs["max_steps"] = min(kwargs["max_steps"], TREE_EVAL_STEPS)
+            out = fn(*args, **kwargs)
+            self.calls.append((out, eval_steps_run(out,
+                                                   kwargs["max_steps"])))
+            return out
+        return capped
+
+    def __enter__(self):
+        for owner in self.OWNERS:
+            fn = owner.evaluate_policy
+            self._saved.append((owner, fn))
+            owner.evaluate_policy = self._wrap(fn)
+        return self
+
+    def __exit__(self, *exc):
+        for owner, fn in self._saved:
+            owner.evaluate_policy = fn
+        self._saved.clear()
+
+
+def export_tree(scene, tree: str, dev):
+    """(a) ``gen_trajectories`` on the reference scene: ``TREE_ROUTES``
+    routes x ``TREE_STEPS`` steps, cameras on, dynamic weather. Prints ms
+    per step by part; raises unless every route wrote ``TREE_STEPS``
+    steps."""
+    t = time.time()
+    with GenTimer() as gt:
+        summary = gen_mod.gen_trajectories(
+            out_dir=tree, n_routes=TREE_ROUTES, max_steps=TREE_STEPS,
+            with_cameras=True, weather="dynamic", device=dev, scene=scene)
+    wall = time.time() - t
+    steps = [e["steps"] for e in summary]
+    n = sum(steps)
+    rest = wall - sum(gt.s.values())
+    size = sum(f.stat().st_size for f in pathlib.Path(tree).rglob("*")
+               if f.is_file())
+    print(f"  gen_trajectories {TREE_ROUTES} routes x {TREE_STEPS} steps "
+          f"(cameras, dynamic weather): {wall:.3f} s, "
+          f"{wall * 1e3 / n:.3f} ms per step = " + ", ".join(
+              f"{k} {v * 1e3 / n:.3f}" for k, v in gt.s.items())
+          + f", expert + noise + the rest {rest * 1e3 / n:.3f}; steps per "
+          f"route {steps}; tree {size / 2**20:.1f} MiB", flush=True)
+    if steps != [TREE_STEPS] * TREE_ROUTES:
+        raise AssertionError(f"an exported episode ended early: {steps}")
+
+
+def bc_from_tree(tree: str, out: str, dev):
+    """(c) ``learn_bc --experts-dir`` on the tree at ``ModelConfig()``
+    for ``BC_EPOCHS`` epochs: ms per epoch (host clock, synchronised) and
+    the losses. Raises on a non-finite loss."""
+    rec = []
+    epoch, evaluate = bc_mod.bc_epoch, bc_mod.bc_eval
+
+    def timed(fn, kind):
+        def call(*args, **kwargs):
+            torch.cuda.synchronize()
+            t = time.time()
+            res = fn(*args, **kwargs)
+            loss = res[1] if kind == "train" else res
+            rec.append((kind, time.time() - t, float(loss)))
+            return res
+        return call
+
+    bc_mod.bc_epoch = timed(epoch, "train")
+    bc_mod.bc_eval = timed(evaluate, "eval")
+    try:
+        t = time.time()
+        best_net, best_loss = learn_bc_mod.main(
+            ["--experts-dir", tree, "--epochs", str(BC_EPOCHS), "--out",
+             out, "--device", str(dev)])
+        wall = time.time() - t
+    finally:
+        bc_mod.bc_epoch, bc_mod.bc_eval = epoch, evaluate
+    train = [r for r in rec if r[0] == "train"]
+    evals = [r for r in rec if r[0] == "eval"]
+    print(f"  learn_bc --experts-dir ({len(train)} epochs, ModelConfig()): "
+          f"{wall:.3f} s with the tree's load and the scene; "
+          f"{np.mean([r[1] for r in train]) * 1e3:.1f} ms per epoch, eval "
+          f"{np.mean([r[1] for r in evals]) * 1e3:.1f} ms; train losses "
+          f"{[round(r[2], 4) for r in train]}, eval losses "
+          f"{[round(r[2], 4) for r in evals]}, best {best_loss:.4f}",
+          flush=True)
+    if not all(np.isfinite(r[2]) for r in rec):
+        raise AssertionError("non-finite BC loss")
+    return best_net
+
+
+def train_from_tree(env_cfg, model_cfg, preset, tree, init, tmp, dev,
+                    best_net):
+    """(d) ``train.run`` from the tree, warm-started from BC's best, one
+    update of ``TREE_UPDATE_STEPS`` steps per env. Raises unless the
+    policy the update starts from equals BC's best (0 tensors differ), B1
+    ran once per render, and every metric and weight is finite."""
+    tcfg = dataclasses.replace(
+        preset["train"], num_steps=TREE_UPDATE_STEPS * preset["train"].n_envs)
+    seen = []
+    update = learner_mod.WDGAILLearner.update
+
+    def probe(self, state, *args, **kwargs):
+        seen.append({k: v.clone() for k, v in
+                     state.policy.state_dict().items()})
+        torch.cuda.synchronize()
+        before, t = bev_cuda.LIB.launches, time.time()
+        out = update(self, state, *args, **kwargs)
+        torch.cuda.synchronize()
+        seen.append((time.time() - t, bev_cuda.LIB.launches - before))
+        return out
+
+    learner_mod.WDGAILLearner.update = probe
+    b1_before = bev_cuda.LIB.launches
+    try:
+        with CappedEval() as evals:
+            t = time.time()
+            state, metrics = train_mod.run(
+                env_cfg, model_cfg, tcfg, preset["scene"], 0, max_updates=1,
+                log_dir=f"{tmp}/train_log", demo_tree=tree,
+                init_params=init, device=dev)
+            wall = time.time() - t
+    finally:
+        learner_mod.WDGAILLearner.update = update
+    ((_, eval_steps),) = evals.calls
+    b1 = bev_cuda.LIB.launches - b1_before
+    before, (upd_s, upd_b1) = seen
+    best = best_net.state_dict()
+    differ = [k for k, v in before.items() if not torch.equal(v, best[k])]
+    check_finite("update from the tree", {
+        k: torch.as_tensor(v) for k, v in metrics.items()},
+        (("policy", state.policy), ("critic", state.disc)))
+    print(f"  train.run --demo-tree --init-params ({tcfg.n_envs} envs x "
+          f"{tcfg.steps_per_env} steps, 1 update): {wall:.3f} s, update "
+          f"{upd_s:.3f} s, B1 launches in the update {upd_b1}; warm-started "
+          f"policy vs BC's best: {len(differ)} of {len(best)} tensors "
+          f"differ; held-out evaluation {eval_steps} steps (cap "
+          f"{TREE_EVAL_STEPS}), eval/length {metrics['eval/length']:.0f}, "
+          f"eval/reward {metrics['eval/reward']:.4f}, disc/dis_loss "
+          f"{float(metrics['disc/dis_loss']):.5g}", flush=True)
+    if differ:
+        raise AssertionError(f"the warm start differs from BC's best at "
+                             f"{differ[:3]}")
+    if upd_b1 != tcfg.steps_per_env + 1 or b1 != upd_b1 + eval_steps:
+        raise AssertionError(f"B1 launches {upd_b1} in the update, {b1} in "
+                             f"the run != renders issued "
+                             f"{tcfg.steps_per_env + 1} + {eval_steps}")
+
+
+def evaluate_bc(init: str, scene, dev):
+    """(e) ``tools/evaluation.evaluate`` of BC's best, one episode on
+    route 3 (at most ``TREE_EVAL_STEPS`` steps): steps and seconds;
+    raises unless B1 ran once per step."""
+    before = bev_cuda.LIB.launches
+    torch.cuda.synchronize()
+    with CappedEval() as evals:
+        t = time.time()
+        (res,) = evaluation_mod.evaluate(init, route=EVAL_ROUTE, episodes=1,
+                                         device=dev, scene=scene)
+        torch.cuda.synchronize()
+        wall = time.time() - t
+    ((_, steps),) = evals.calls
+    b1 = bev_cuda.LIB.launches - before
+    print(f"  evaluation.evaluate (BC's best, route {EVAL_ROUTE}): {steps} "
+          f"steps (cap {TREE_EVAL_STEPS}) in {wall:.3f} s "
+          f"({wall * 1e3 / steps:.2f} ms per step), episode length "
+          f"{res['length']} (0: not ended), reward {res['reward']:.4f}, "
+          f"completed {res['completed']}, B1 launches {b1}", flush=True)
+    if b1 != steps:
+        raise AssertionError(f"evaluation: B1 launches {b1} != steps "
+                             f"{steps}")
+
+
+def full_render_vs_kernels(scene, env_cfg, env6_cfg, gen):
+    """(b) ``render_bev_full`` at the rollout's ``ROLL_ENVS`` envs with a
+    filled ring (bev6 traffic, ``RING_STEPS`` steps) against B1 (masks
+    0-2 decoded as the tree loader's planes are) and B2 (masks 0-2, 14, 6
+    and 10). Raises unless 0 values differ; returns the differing count
+    and the full render's CUDA-graph-free ms."""
+    cfg = dataclasses.replace(env6_cfg, full_bev=True)
+    routes = torch.arange(ROLL_ENVS, device=scene.device) % scene.n_routes
+    st, _, ren = reset_batch(scene, cfg, routes, gen)
+    for _ in range(RING_STEPS):
+        action = torch.stack([
+            torch.rand(ROLL_ENVS, generator=gen, device=scene.device) - 0.5,
+            torch.rand(ROLL_ENVS, generator=gen, device=scene.device)], 1)
+        st, out = step_batch(scene, cfg, st, action, gen)
+        ren = out.render
+    hist = st.history
+
+    def full():
+        return render_bev_full(scene, cfg, ren.xy, ren.yaw, ren.route_id,
+                               ren.head, hist)
+
+    masks = full()[0].to(torch.float32) * INV_255
+    b1 = bev_cuda.render_bev_cuda_batch(scene, env_cfg, ren)
+    b2 = bev6_cuda.render_bev6_cuda_batch(scene, cfg, ren)
+    d1 = int((b1 != masks[:, :3]).sum())
+    d2 = int((b2 != masks[:, [0, 1, 2, 14, 6, 10]]).sum())
+    drawn = [int((masks[:, c] > 0).flatten(1).any(1).sum())
+             for c in (6, 10, 14, 5, 9, 13)]
+    ms = cuda_ms(full, iters=3, warmup=1)
+    print(f"  render_bev_full {ROLL_ENVS} envs x {cfg.bev_width} px, ring "
+          f"filled by {RING_STEPS} steps (bev6, {cfg.n_npc_vehicles} + "
+          f"{cfg.n_npc_walkers} NPCs): {ms:.3f} ms; vs B1 planes 0-2: {d1} "
+          f"of {b1.numel()} values differ; vs B2 (0-2, 14, 6, 10): {d2} of "
+          f"{b2.numel()}; envs drawing vehicles / walkers / lights now "
+          f"{drawn[:3]}, 5 ticks back {drawn[3:]}", flush=True)
+    if d1 or d2:
+        raise AssertionError("the full render's planes differ from B1/B2")
+    if not all(drawn[:3]):
+        raise AssertionError("the full render drew no actor or light")
+    return d1 + d2, ms
+
+
+def tree_card_vs_cpu(tmp: str, dev):
+    """(f) ``gen_trajectories`` on the smoke scene, ``CMP_ROUTES`` routes
+    x ``CMP_STEPS`` steps with cameras and dynamic weather, on the card
+    and on the CPU with the same draws (made on the CPU). Raises unless
+    the masks and rendered BEV are equal, cameras within one level and
+    ``episode.json`` within ``DEMO_TOL``."""
+    smoke = make_presets()["smoke"]
+    cpu = torch.device("cpu")
+    cpu_scene = make_benchmark_scene(**smoke["scene"], device=cpu)
+    cfg = EnvConfig(train=False, full_bev=True)
+    gen = torch.Generator()
+    gen.manual_seed(SEED)
+    draws = [draw_demos(cpu_scene, cfg, 1, CMP_STEPS, gen)
+             for _ in range(CMP_ROUTES)]
+    secs = {}
+    for name, d in (("card", dev), ("cpu", cpu)):
+        sc = cpu_scene if d == cpu else cpu_scene.to(d)
+        t = time.time()
+        gen_mod.gen_trajectories(
+            out_dir=f"{tmp}/{name}", traj_name="t", n_routes=CMP_ROUTES,
+            max_steps=CMP_STEPS, with_cameras=True, weather="dynamic",
+            device=d, scene=sc,
+            draws=[demo_draws_to(x, d) for x in draws])
+        torch.cuda.synchronize()
+        secs[name] = time.time() - t
+    bev_diff = cam_diff = cam_max = 0
+    json_err = 0.0
+    card, cpu_root = (pathlib.Path(tmp) / n / "t" for n in ("card", "cpu"))
+    for f in sorted(card.rglob("*.png")):
+        a = read_png(f).astype(np.int32)
+        b = read_png(cpu_root / f.relative_to(card)).astype(np.int32)
+        if f.parent.name in ("birdview", "birdview_masks"):
+            bev_diff += int((a != b).sum())
+        else:
+            cam_diff += int((a != b).sum())
+            cam_max = max(cam_max, int(np.abs(a - b).max()))
+    for f in sorted(card.rglob("episode.json")):
+        a, b = (json.loads(p.read_text()) for p in
+                (f, cpu_root / f.relative_to(card)))
+        if a.keys() != b.keys() or any(a[k].keys() != b[k].keys()
+                                       for k in a):
+            raise AssertionError(f"{f}: card and CPU steps differ")
+        for k in a:
+            json_err = max(json_err, float(np.abs(
+                np.array(list(a[k].values()))
+                - np.array(list(b[k].values()))).max()))
+    print(f"  card vs CPU gen_trajectories (smoke scene, {CMP_ROUTES} "
+          f"routes x {CMP_STEPS} steps, cameras, dynamic weather): masks "
+          f"and birdview {bev_diff} values differ, cameras {cam_diff} "
+          f"(max {cam_max} levels), episode.json max |d| {json_err:.3e} "
+          f"(limit {DEMO_TOL}); card {secs['card']:.2f} s, CPU "
+          f"{secs['cpu']:.2f} s", flush=True)
+    if bev_diff or cam_max > 1 or json_err > DEMO_TOL:
+        raise AssertionError("card and CPU trees disagree")
+
+
+def tree_bc_path(scene, env_cfg, env6_cfg, model_cfg, preset, gen, dev):
+    """The demo-file and BC recipe at the reference preset: (a) export a
+    tree, (c) BC from it, (d) WDGAIL from it warm-started from BC, (e) the
+    evaluation CLI's function, each timed; every launch count is set to
+    0 just before (a) and read after (e). Then the comparisons: (b) the
+    full render against B1/B2 and (f) a card-vs-CPU tree. Returns B1's
+    launches on the path."""
+    with tempfile.TemporaryDirectory() as tmp:
+        tree, bc_out = f"{tmp}/gail_experts", f"{tmp}/bc"
+        for lib in (bev_cuda.LIB, bev6_cuda.LIB):
+            lib.launches = 0
+        t = time.time()
+        export_tree(scene, tree, dev)
+        progress("tree bc (a) export", t)
+        t = time.time()
+        best_net = bc_from_tree(tree, bc_out, dev)
+        progress("tree bc (c) learn_bc", t)
+        t = time.time()
+        train_from_tree(env_cfg, model_cfg, preset, tree, f"{bc_out}/best",
+                        tmp, dev, best_net)
+        progress("tree bc (d) train --demo-tree", t)
+        t = time.time()
+        evaluate_bc(f"{bc_out}/best", scene, dev)
+        progress("tree bc (e) evaluation", t)
+        torch.cuda.synchronize()
+        launches = bev_cuda.LIB.launches
+        if bev6_cuda.LIB.launches:
+            raise AssertionError("B2 was launched on the tree bc path")
+        print(f"  B1 launches on the tree bc path: {launches}", flush=True)
+        if not launches:
+            raise AssertionError("B1 was not launched on the tree bc path")
+        t = time.time()
+        full_render_vs_kernels(scene, env_cfg, env6_cfg, gen)
+        progress("tree bc (b) full render vs kernels", t)
+        t = time.time()
+        tree_card_vs_cpu(tmp, dev)
+        progress("tree bc (f) card vs CPU", t)
+    return launches
+
+
 def kernel_line(name, source, replaces, launches, err, times):
     k_ms, p_ms, b_ms, b_by = times
     return {
@@ -1161,6 +1549,12 @@ def main() -> int:
     launches += train_path(env_cfg, model_cfg, preset["train"], preset,
                            dev)
     progress("train bev", t)
+
+    # --- the demo-file and BC recipe: export, BC, WDGAIL, evaluation ---
+    t = time.time()
+    launches += tree_bc_path(scene, env_cfg, env6_cfg, model_cfg, preset,
+                             gen, dev)
+    progress("tree bc", t)
 
     torch.cuda.synchronize()
     print(json.dumps({"kernels": [

@@ -4,10 +4,11 @@
 Two observation policies, both on the device:
 
 - ``obs`` stored BIT-PACKED, one uint8 per pixel (T, N, W, W): rendered
-  once while acting, unpacked per minibatch. Every BEV channel is discrete
-  (road/route/vehicle/walker binary, lane in {0, 120, 255}, signal in
-  {0, 80, 170, 255}), so the 3- or 6-channel image packs losslessly into 8
-  bits per pixel.
+  once while acting, unpacked per minibatch (an expert buffer read from
+  a PNG tree holds (M, C, W, W) uint8 planes instead). Every BEV channel
+  is discrete (road/route/vehicle/walker binary, lane in {0, 120, 255},
+  signal in {0, 80, 170, 255}), so the 3- or 6-channel image packs
+  losslessly into 8 bits per pixel.
 - ``obs = None``: minibatches re-render from the compact RenderState
   (kernel B1 or B2 on the card).
 
@@ -60,7 +61,7 @@ class ExpertBuffer:
 
     render: object               # RenderState, leaves (M, ...)
     metrics: torch.Tensor        # (M, 4)
-    obs: Optional[torch.Tensor]  # (M, W, W) packed uint8, or None
+    obs: Optional[torch.Tensor]  # (M, W, W) packed / (M, C, W, W) u8
     actions: torch.Tensor        # (M, 2)
 
     @property
@@ -140,9 +141,15 @@ def store_encode(cfg: EnvConfig, obs: torch.Tensor) -> torch.Tensor:
 
 
 def _decode(cfg: EnvConfig, obs_stored: torch.Tensor) -> torch.Tensor:
+    """Float obs of stored rows: (B, W, W) bit-packed, or (B, C, W, W)
+    per-channel uint8 planes (expert buffers read from a PNG tree,
+    ``tools/expert_dataset.py``). The planes' ``/ 255.0`` in the JAX
+    source is compiled by XLA into a multiply by the float32 reciprocal,
+    which is what this computes."""
     if obs_stored.dtype != torch.uint8:
-        raise ValueError(f"stored obs are packed uint8, got "
-                         f"{obs_stored.dtype}")
+        raise ValueError(f"stored obs are uint8, got {obs_stored.dtype}")
+    if obs_stored.dim() == 4:
+        return obs_stored.to(torch.float32) * INV_255
     return unpack_bev_obs(cfg, obs_stored)
 
 

@@ -32,6 +32,7 @@ import torch
 
 from gail_carla_tpu_torch.config import EnvConfig
 from gail_carla_tpu_torch.ops.bev import fetch_cell, fetch_hard_cell
+from gail_carla_tpu_torch.ops.bev_full import push_history
 from gail_carla_tpu_torch.sim import criteria as crit
 from gail_carla_tpu_torch.sim import rewards as rew
 from gail_carla_tpu_torch.sim import signals
@@ -45,7 +46,9 @@ from gail_carla_tpu_torch.sim.cursor import (
 from gail_carla_tpu_torch.sim.dynamics import (
     DEFAULT_VEHICLE, VehicleParams, VehicleState, step_vehicle,
 )
-from gail_carla_tpu_torch.sim.state import WorldState, tree_select
+from gail_carla_tpu_torch.sim.state import (
+    WorldState, make_empty_history, tree_select,
+)
 from gail_carla_tpu_torch.sim.traffic import (
     TrafficResetDraws, draw_cross, draw_traffic_reset, reset_traffic,
     step_traffic,
@@ -118,11 +121,6 @@ def draw_step(scene, cfg: EnvConfig, n: int,
     )
 
 
-def _check_cfg(cfg: EnvConfig) -> None:
-    if cfg.full_bev:
-        raise NotImplementedError("the full-BEV history is not ported yet")
-
-
 def reset_env(
     scene,
     cfg: EnvConfig,
@@ -136,7 +134,6 @@ def reset_env(
     (ego_vehicle_handler.py:55-78): after completing the route (or in eval
     mode) restart at 0; otherwise with prob 0.1 restart at a random route
     point; otherwise resume from where the last episode ended."""
-    _check_cfg(cfg)
     dev = scene.device
     N = route_ids.shape[0]
     rid = route_ids.to(torch.int32)
@@ -214,6 +211,12 @@ def reset_env(
         resume_idx=resume_idx.to(torch.int32),
         completed_last=completed_last,
         traffic=reset_traffic(scene, cfg, ego.xy, draws.traffic, generator),
+        history=(
+            make_empty_history(N, cfg.n_npc_vehicles, cfg.n_npc_walkers,
+                               scene.tl_stop.shape[0],
+                               scene.ss_center.shape[0], dev)
+            if cfg.full_bev else None
+        ),
     )
 
 
@@ -280,7 +283,6 @@ def step_batch(
     Auto-resets on done and returns the new episode's observation with
     the finished episode's reward/done/info. The draws the step makes
     (see ``StepDraws``) come from ``generator`` unless given."""
-    _check_cfg(cfg)
     if cfg.endless_extension and scene.endless_next is not None:
         raise NotImplementedError("endless route chaining is not ported yet")
     steer, throttle = action[:, 0], action[:, 1]
@@ -440,6 +442,22 @@ def step_batch(
     reward = valeo_reward if cfg.reward_mode == "valeo" else delta_reward
     episode_reward = state.episode_reward + reward
 
+    # BEV history ring (chauffeurnet.py:105-133)
+    history = state.history
+    if cfg.full_bev:
+        S = scene.ss_center.shape[0]
+        stop_active = (
+            (torch.arange(S, device=ego.xy.device)[None, :]
+             == ss_state.target[:, None]) & ~ss_state.completed[:, None]
+        )
+        history = push_history(
+            history,
+            torch.cat([traffic.veh.xy, traffic.veh.yaw[..., None]], dim=-1),
+            torch.cat([traffic.walker_xy, traffic.walker_yaw[..., None]],
+                      dim=-1),
+            tl_states, stop_active,
+        )
+
     # leaderboard episode stats (ego_vehicle_handler.py:208-248)
     score_route = torch.clamp(total, 0.0, 1.0) * 100.0
     score_penalty = (
@@ -491,6 +509,7 @@ def step_batch(
         resume_idx=resume_idx,
         completed_last=completed_last,
         traffic=traffic,
+        history=history,
     )
     fresh = reset_env(scene, cfg, rid, resume_idx, completed_last,
                       draws=reset_draws, generator=generator)

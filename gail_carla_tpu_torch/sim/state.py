@@ -3,11 +3,12 @@
 Port of ``gail_carla_tpu/sim/state.py``. Every field carries a leading env
 axis. The JAX state also carries its PRNG key; here randomness comes from
 a ``torch.Generator`` (or injected draws) passed to reset and step. The
-scenario-actor slots and the full-BEV history ring are not ported.
+scenario-actor slots are not ported.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 
@@ -67,6 +68,38 @@ def make_empty_traffic(n_envs: int, n_veh: int, n_walkers: int,
 
 
 @dataclasses.dataclass
+class HistoryState:
+    """20-tick ring of dynamic-actor snapshots per env for the full BEV
+    mask stack (chauffeurnet.py:48's deque(maxlen=20)). Allocated only
+    when ``EnvConfig.full_bev`` is on."""
+
+    veh_pose: torch.Tensor     # (N, 20, K, 3) x, y, yaw
+    walker_pose: torch.Tensor  # (N, 20, W, 3)
+    tl_state: torch.Tensor     # (N, 20, T) i8 light states
+    stop_active: torch.Tensor  # (N, 20, S) bool un-completed target sign
+    idx: torch.Tensor          # (N,) i32 next write slot
+    count: torch.Tensor        # (N,) i32 valid entries
+
+
+HISTORY_LEN = 20
+
+
+def make_empty_history(n_envs: int, n_veh: int, n_walkers: int, n_tl: int,
+                       n_ss: int, device) -> HistoryState:
+    ring = (n_envs, HISTORY_LEN)
+    return HistoryState(
+        veh_pose=torch.zeros(ring + (n_veh, 3), device=device),
+        walker_pose=torch.zeros(ring + (n_walkers, 3), device=device),
+        tl_state=torch.zeros(ring + (n_tl,), dtype=torch.int8,
+                             device=device),
+        stop_active=torch.zeros(ring + (n_ss,), dtype=torch.bool,
+                                device=device),
+        idx=torch.zeros(n_envs, dtype=torch.int32, device=device),
+        count=torch.zeros(n_envs, dtype=torch.int32, device=device),
+    )
+
+
+@dataclasses.dataclass
 class WorldState:
     # ego vehicle
     ego: VehicleState
@@ -116,12 +149,16 @@ class WorldState:
     completed_last: torch.Tensor
     # traffic
     traffic: TrafficState
+    # BEV actor history (None unless EnvConfig.full_bev)
+    history: Optional[HistoryState] = None
 
 
 def tree_select(cond: torch.Tensor, a, b):
     """``where(cond, a, b)`` over every tensor of two states of the same
     dataclass structure; ``cond`` ((N,) or (N, K)) broadcasts over the
     trailing axes."""
+    if a is None:
+        return None
     if isinstance(a, torch.Tensor):
         c = cond.reshape(cond.shape + (1,) * (a.dim() - cond.dim()))
         return torch.where(c, a, b)

@@ -4,9 +4,10 @@ reference's ``wdail_carla.py``).
 Pipeline (wdail_carla.py:129-250):
 1. compile the static scene (the stand-in for a CARLA town + its routes);
 2. generate expert demos on the device with the scripted expert and the
-   noisers (``algo/expert.py::generate_demos``; the reference reads
-   ``gail_experts/`` PNG trees) and build the expert and validation
-   buffers (``algo/buffers.py::build_expert_buffer``);
+   noisers (``algo/expert.py::generate_demos``) and build the expert and
+   validation buffers (``algo/buffers.py::build_expert_buffer``), or, with
+   ``--demo-tree``, read both from a ``gail_experts/`` PNG tree
+   (``tools/expert_dataset.py``, the reference's input path);
 3. build the learner (``algo/learner.py::WDGAILLearner``);
 4. loop updates; evaluate the policy deterministically on the held-out
    route every ``eval_interval`` updates; write the metrics log
@@ -19,8 +20,7 @@ Usage (on the card unless ``--device cpu``):
     python -m gail_carla_tpu_torch.train --params params.json
 
 Not ported yet, and raising ``NotImplementedError``: the town presets
-(ROADMAP A7, the town importers), ``--demo-tree`` (A6, the on-disk expert
-dataset) and more than one device (A5).
+(ROADMAP A7, the town importers) and more than one device (A5).
 """
 from __future__ import annotations
 
@@ -185,10 +185,6 @@ def run(env_cfg, model_cfg, tcfg, scene_kwargs, demo_steps,
         eval_seeds=1, demo_tree=None, eval_chunk=0, device="cuda"):
     """Train as ``gail_carla_tpu/train.py::run`` does; returns (the last
     ``LearnerState``, the last update's metrics with the eval metrics)."""
-    if demo_tree:
-        raise NotImplementedError(
-            "demos from a gail_experts/ tree need tools/expert_dataset.py, "
-            "which is not ported yet (ROADMAP A6)")
     if use_sharding:
         raise NotImplementedError(
             "training on more than one device is not ported yet "
@@ -196,19 +192,33 @@ def run(env_cfg, model_cfg, tcfg, scene_kwargs, demo_steps,
     dev = resolve_device(device)
     scene = make_scene(scene_kwargs, dev)
 
-    # --- expert demos on the device (train + held-out validation) ---
-    demo_cfg = demo_config(env_cfg)
-    demos = generate_demos(scene, demo_cfg, _generator(dev, DEMO_SEED),
-                           tcfg.routes, demo_steps,
-                           obey_signals=demo_obey_signals)
-    demos_val = generate_demos(scene, demo_cfg,
-                               _generator(dev, DEMO_VAL_SEED),
-                               [tcfg.eval_route], demo_steps,
+    if demo_tree:
+        # expert demos from a gail_experts/ PNG tree (the reference's input
+        # path, wdail_carla.py + ExpertDataset, algo/wdgail.py:192-241);
+        # the obs planes are stored, so nothing re-renders
+        from gail_carla_tpu_torch.tools.expert_dataset import (
+            expert_buffer_from_tree,
+        )
+
+        n_ch = 6 if env_cfg.obs_mode == "bev6" else 3
+        expert = expert_buffer_from_tree(demo_tree, tcfg.routes,
+                                         n_channels=n_ch, device=dev)
+        expert_val = expert_buffer_from_tree(demo_tree, [tcfg.eval_route],
+                                             n_channels=n_ch, device=dev)
+    else:
+        # expert demos on the device (train + held-out validation)
+        demo_cfg = demo_config(env_cfg)
+        demos = generate_demos(scene, demo_cfg, _generator(dev, DEMO_SEED),
+                               tcfg.routes, demo_steps,
                                obey_signals=demo_obey_signals)
-    expert = build_expert_buffer(scene, env_cfg, demos,
-                                 max_size=EXPERT_MAX_ROWS)
-    expert_val = build_expert_buffer(scene, env_cfg, demos_val,
-                                     size=min(VAL_ROWS, expert.size))
+        demos_val = generate_demos(scene, demo_cfg,
+                                   _generator(dev, DEMO_VAL_SEED),
+                                   [tcfg.eval_route], demo_steps,
+                                   obey_signals=demo_obey_signals)
+        expert = build_expert_buffer(scene, env_cfg, demos,
+                                     max_size=EXPERT_MAX_ROWS)
+        expert_val = build_expert_buffer(scene, env_cfg, demos_val,
+                                         size=min(VAL_ROWS, expert.size))
     print(f"expert buffer: {expert.size} transitions "
           f"(+{expert_val.size} val)", file=sys.stderr)
 
@@ -360,7 +370,7 @@ def parse_args(argv=None):
                         "(TrainConfig.eval_interval, default 3)")
     p.add_argument("--demo-tree", default=None,
                    help="train from an on-disk gail_experts/ PNG tree "
-                        "(not ported yet: ROADMAP A6)")
+                        "(tools/gen_trajectories.py writes one)")
     p.add_argument("--npc-vehicles", type=int, default=None,
                    help="background NPC vehicles per world during "
                         "training, demos and eval; demos need "

@@ -14,6 +14,7 @@ loop); the golden trace at ``tests/test_golden.py``'s tolerances (xy
 1e-3, actions and metrics 1e-4), and JAX's run of it within 1e-4. The
 JAX package is imported inside the tests only (read-only reference).
 """
+import contextlib
 import dataclasses
 import pathlib
 
@@ -43,18 +44,26 @@ TRAFFIC_ENV = dataclasses.replace(EnvConfig(train=False), obs_mode="bev6",
 GOLDEN = pathlib.Path(__file__).parent / "golden_expert_route0.npz"
 
 
-@pytest.fixture(autouse=True)
-def one_torch_thread():
-    """torch on one thread for each test, restored after it: the
+@contextlib.contextmanager
+def single_torch_thread():
+    """torch on one thread inside the block, restored after it: the
     simulator's tensors are a few elements wide, and with the test
     workers running side by side more threads only contend for the
-    cores."""
+    cores. Module-scoped fixtures run before ``one_torch_thread`` and
+    use this themselves."""
     n = torch.get_num_threads()
     torch.set_num_threads(1)
     try:
         yield
     finally:
         torch.set_num_threads(n)
+
+
+@pytest.fixture(autouse=True)
+def one_torch_thread():
+    """torch on one thread for each test (``single_torch_thread``)."""
+    with single_torch_thread():
+        yield
 
 
 def _t(a):

@@ -12,8 +12,11 @@ import torch
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "gail_carla_tpu_torch")
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "gail_carla_tpu",
-             "threading", "multiprocessing", "concurrent")
-BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "gail_carla_tpu")
+             "PIL", "threading", "multiprocessing", "concurrent")
+# the port reads and writes PNG files with its own codec (utils/png.py):
+# the card's machine has no imaging package
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "gail_carla_tpu",
+           "PIL")
 TEXT_SOURCES = (".cu", ".cuh", ".h", ".hpp", ".cpp", ".cc")
 MAX_FILE_BYTES = 200 * 1024
 

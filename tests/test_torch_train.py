@@ -195,14 +195,19 @@ def test_main_runs_and_resumes_bit_equal(tmp_path):
 
 
 def test_run_refuses_what_is_not_ported(tmp_path):
-    """Town scenes (ROADMAP A7), demo trees (A6) and more than one device
-    (A5) raise instead of falling back."""
+    """Town scenes (ROADMAP A7) and more than one device (A5) raise
+    instead of falling back; a demo tree without demos raises instead of
+    training on generated ones."""
     smoke = PRESET
     common = (smoke["env"], smoke["model"], smoke["train"])
     with pytest.raises(NotImplementedError, match="A7"):
         train.run(*common, {"town": "Town01"}, 10, device="cpu",
                   log_dir=str(tmp_path))
-    with pytest.raises(NotImplementedError, match="A6"):
+    for route in smoke["train"].routes:
+        ep = tmp_path / f"route_{route:02d}" / "ep_00"
+        ep.mkdir(parents=True)
+        (ep / "episode.json").write_text('{"actions": {}, "metrics": {}}')
+    with pytest.raises(FileNotFoundError, match="no expert steps"):
         train.run(*common, smoke["scene"], 10, device="cpu",
                   demo_tree=str(tmp_path), log_dir=str(tmp_path))
     with pytest.raises(NotImplementedError, match="A5"):
