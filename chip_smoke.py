@@ -44,7 +44,24 @@ the training entry point ``train.run``.
   differing, and a tree made on the card against one made on the CPU
   from the same draws (smoke scene, 2 routes x ``CMP_STEPS`` steps):
   masks equal, cameras within one level, ``episode.json`` within
-  ``DEMO_TOL``.
+  ``DEMO_TOL``;
+- the ``"suites"`` path, the gym-style env API and the policy benchmarks
+  at the same widths: ``envs.make`` on the card for one id of each suite
+  family (each ``DrivingEnv`` renders its one world through B1), a
+  ``VecEnv`` of ``VEC_ENVS`` envs on the NoCrash regular scene through an
+  ``EnvMonitor``, ``tools/nocrash_bench.run_tier`` on the four NoCrash
+  traffic tiers (dense: 100 vehicles and 250 walkers per world) and the
+  four CoRL2017 task types with the bev6 policy (B2 once per step) and
+  the expert, ``tools/benchmark_policy.benchmark`` on the reference scene
+  (B1) and with the expert, each for ``SUITE_STEPS`` steps, and the
+  expert on the endless suite's chained rows until an env has switched
+  rows and passed the first row's length. Then B1 on the switched envs
+  against its plain version, B2 at the dense tier's 351 boxes per env on
+  the rollout's 256 envs against its plain version (0 values differ),
+  timed, with its shared memory per block, and a tier and a
+  ``DrivingEnv`` run on the card against the CPU with the same draws
+  (latched flags and 0 observation values equal, scores and metrics
+  within ``DEMO_TOL``).
 
 Each kernel is checked against its plain version on the same render
 states of the rollout's 256 envs, at W=192 and W=100, with envs placed on
@@ -77,7 +94,9 @@ switched off for both (``torch.backends.cuda.matmul.allow_tf32`` and
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import io
 import json
 import pathlib
 import subprocess
@@ -90,6 +109,10 @@ import torch
 
 from gail_carla_tpu_torch import cuda_build
 from gail_carla_tpu_torch import train as train_mod
+from gail_carla_tpu_torch.agents.autopilot import (
+    autopilot_act, reset_autopilot_where,
+)
+from gail_carla_tpu_torch.agents.controllers import make_autopilot
 from gail_carla_tpu_torch.algo import bc as bc_mod
 from gail_carla_tpu_torch.algo import learner as learner_mod
 from gail_carla_tpu_torch.algo import ppo as ppo_mod
@@ -99,7 +122,7 @@ from gail_carla_tpu_torch.algo.buffers import (
     build_expert_buffer, fetch_rollout_obs, map_state, pack_bev_obs,
     unpack_bev_obs,
 )
-from gail_carla_tpu_torch.algo.evaluate import evaluate_policy
+from gail_carla_tpu_torch.algo.evaluate import evaluate_policy, run_latched
 from gail_carla_tpu_torch.algo.expert import (
     DemoBatch, DemoDraws, draw_demos, generate_demos,
 )
@@ -109,6 +132,10 @@ from gail_carla_tpu_torch.config import EnvConfig, ModelConfig
 from gail_carla_tpu_torch.convert import (
     init_critic_flax_params, init_flax_params, init_policy,
 )
+from gail_carla_tpu_torch.envs import registry
+from gail_carla_tpu_torch.envs.gym_env import DrivingEnv
+from gail_carla_tpu_torch.envs.suites import NOCRASH_TRAFFIC, nocrash_suite
+from gail_carla_tpu_torch.envs.vec_env import VecEnv, host_outputs
 from gail_carla_tpu_torch.models import policy as policy_mod
 from gail_carla_tpu_torch.ops import bev as bev_plain
 from gail_carla_tpu_torch.ops import bev6 as bev6_plain
@@ -120,12 +147,16 @@ from gail_carla_tpu_torch.sim.env import (
     RenderState, draw_gnss, draw_reset, draw_step, reset_batch, step_batch,
 )
 from gail_carla_tpu_torch.sim.traffic import step_traffic
+from gail_carla_tpu_torch.tools import benchmark_policy
 from gail_carla_tpu_torch.tools import evaluation as evaluation_mod
 from gail_carla_tpu_torch.tools import gen_trajectories as gen_mod
 from gail_carla_tpu_torch.tools import learn_bc as learn_bc_mod
+from gail_carla_tpu_torch.tools import nocrash_bench
+from gail_carla_tpu_torch.tools.corl_bench import TASK_TYPES
 from gail_carla_tpu_torch.train import make_presets
 from gail_carla_tpu_torch.utils import checkpoint as ckpt_mod
 from gail_carla_tpu_torch.utils.logging import TAG_MAP
+from gail_carla_tpu_torch.utils.monitor import EnvMonitor
 from gail_carla_tpu_torch.utils.png import read_png
 
 KERNEL_SOURCES = ("bev_raster.cu", "bev6_raster.cu")
@@ -160,12 +191,30 @@ PEAK_BYTES_PER_S = 3.35e12
 # the update's steps per env from the tree, the evaluations' step cap,
 # the steps that fill the full render's ring, the card-vs-CPU tree
 # (routes x steps)
-TREE_ROUTES, TREE_STEPS = 10, 32
+TREE_ROUTES, TREE_STEPS = 10, 24
 BC_EPOCHS = 3
 TREE_UPDATE_STEPS = 64
-TREE_EVAL_STEPS = 300
+TREE_EVAL_STEPS = 150
 RING_STEPS = 22
-CMP_ROUTES, CMP_STEPS = 2, 20
+CMP_ROUTES, CMP_STEPS = 2, 10
+# the suites phase: steps of each DrivingEnv the registry makes, the
+# vector env (envs x steps), the step cap of each NoCrash tier, CoRL task
+# type and leaderboard benchmark (the tools' 2,400-6,000 cut), the endless
+# expert (envs x at most steps), the card-vs-CPU tier's steps and
+# DrivingEnv's steps
+REGISTRY_STEPS = 10
+VEC_ENVS, VEC_STEPS = 16, 50
+SUITE_STEPS = 20
+ENDLESS_ENVS, ENDLESS_STEPS = 8, 400
+CMP_TIER_STEPS, CMP_ENV_STEPS = 100, 20
+# the registry's ids driven in the suites phase, one per family; Endless
+# with the short rows of the endless check
+REGISTRY_IDS = ("LeaderBoard-v0", "NoCrash-v2", "CoRL2017-v1",
+                "CoRL2017-v3", "Endless-v0")
+ENDLESS_ROWS = dict(n_rows=6, row_m=150.0)
+NOCRASH_IDS = {"empty": "NoCrash-v0", "regular": "NoCrash-v1",
+               "dense": "NoCrash-v2", "leaderboard": "NoCrash-v3"}
+CORL_IDS = {t: f"CoRL2017-v{i}" for i, t in enumerate(TASK_TYPES)}
 SEED = 0
 T0 = time.time()
 
@@ -1424,6 +1473,339 @@ def tree_bc_path(scene, env_cfg, env6_cfg, model_cfg, preset, gen, dev):
     return launches
 
 
+def synced_s(t0: float) -> float:
+    """Host-clock seconds since ``t0``, after the card has finished."""
+    torch.cuda.synchronize()
+    return time.time() - t0
+
+
+def registry_envs(dev, w: int):
+    """(a) ``registry.make`` on the card for one id of each family, then
+    ``reset`` and ``REGISTRY_STEPS`` steps of each ``DrivingEnv`` (one
+    world, its BEV through B1 at every step). Returns the envs by id."""
+    envs = {}
+    for env_id in REGISTRY_IDS:
+        over = ENDLESS_ROWS if env_id == "Endless-v0" else {}
+        t = time.time()
+        env = registry.make(env_id, device=dev, **over)
+        build = synced_s(t)
+        env.reset()
+        t = time.time()
+        for _ in range(REGISTRY_STEPS):
+            obs, met, rew, _, info = env.step([0.0, 0.5])
+            if not (np.isfinite(met).all() and np.isfinite(rew)):
+                raise AssertionError(f"{env_id}: non-finite step output")
+        ms = synced_s(t) / REGISTRY_STEPS * 1e3
+        if obs.shape != (3, w, w) or not env.observation_space.contains(obs):
+            raise AssertionError(f"{env_id}: observation {obs.shape} out "
+                                 f"of its space")
+        cfg = env.cfg
+        print(f"  make({env_id!r}) on the card: build {build:.3f} s "
+              f"({env.scene.n_routes} routes, {len(env.tasks)} tasks, "
+              f"{cfg.n_npc_vehicles} vehicles + {cfg.n_npc_walkers} "
+              f"walkers); reset + {REGISTRY_STEPS} steps at {ms:.3f} ms "
+              f"per step (task route {env.task['route_id']}, "
+              f"{env.task['weather']}, sun {info['sun_altitude_angle']:.1f}"
+              f", lights {info['vehicle_lights_on']})", flush=True)
+        envs[env_id] = env
+    return envs
+
+
+def vec_env_run(dev):
+    """(b) ``VecEnv`` at ``VEC_ENVS`` envs on the NoCrash regular scene
+    for ``VEC_STEPS`` steps through an ``EnvMonitor``; env-steps/s with
+    the host copies, and one step's host copy alone."""
+    env = registry.make("NoCrash-v1", device=dev)
+    venv = VecEnv(env.scene, env.cfg, VEC_ENVS, seed=SEED)
+    actions = np.tile(np.float32([0.0, 0.6]), (VEC_ENVS, 1))
+    with tempfile.TemporaryDirectory() as tmp:
+        mon = EnvMonitor(tmp, VEC_ENVS)
+        venv.reset()
+        t = time.time()
+        for _ in range(VEC_STEPS):
+            obs, met, rew, dones, infos = venv.step(actions)
+            mon.record_step(dones, infos)
+        dt = synced_s(t)
+        mon.close()
+        rows = sum(len(p.read_text().splitlines()) - 1
+                   for p in pathlib.Path(tmp, "env_info").glob("*.csv"))
+    if not (np.isfinite(obs).all() and np.isfinite(met).all()
+            and np.isfinite(rew).all()):
+        raise AssertionError("non-finite vector env output")
+    if obs.shape != (VEC_ENVS, 3, env.cfg.bev_width, env.cfg.bev_width):
+        raise AssertionError(f"vector env observation {obs.shape}")
+    o = torch.rand(obs.shape, device=dev)
+    m = torch.rand((VEC_ENVS, 4), device=dev)
+    copy_ms = cuda_ms(lambda: host_outputs(o, m), iters=10)
+    print(f"  VecEnv {VEC_ENVS} envs x {VEC_STEPS} steps (NoCrash regular, "
+          f"20 + 50 NPCs per env): {VEC_ENVS * VEC_STEPS / dt:.1f} "
+          f"env-steps/s with the host copies, {dt / VEC_STEPS * 1e3:.3f} "
+          f"ms per step; one step's copy of {obs.nbytes / 1e6:.2f} MB of "
+          f"observation and the metrics alone {copy_ms:.3f} ms; "
+          f"{rows} episode rows logged", flush=True)
+
+
+def tier(name: str, scene, cfg, net, expert: bool):
+    """``run_tier`` for one episode of ``SUITE_STEPS`` steps with the
+    policy ``net`` on the bev6 BEV (every step's render through B2) or
+    the expert; raises unless B2 ran once per step (none for the
+    expert). Returns the result."""
+    cfg = dataclasses.replace(
+        nocrash_bench.tier_config(cfg, "bev6", expert),
+        max_time=SUITE_STEPS * 0.1)
+    before = bev6_cuda.LIB.launches
+    t = time.time()
+    res = nocrash_bench.run_tier(scene, cfg, net, 2021, 1, SUITE_STEPS,
+                                 expert=expert)
+    dt = synced_s(t)
+    launches = bev6_cuda.LIB.launches - before
+    steps = sum(res["steps_run"])
+    if launches != (0 if expert else steps):
+        raise AssertionError(f"{name}: {launches} B2 launches for {steps} "
+                             f"steps")
+    if not np.isfinite(res["mean_driving_score"]):
+        raise AssertionError(f"{name}: non-finite driving score")
+    print(f"  run_tier {name} ({'expert' if expert else 'bev6 policy'}, "
+          f"{scene.n_routes} routes, {cfg.n_npc_vehicles} + "
+          f"{cfg.n_npc_walkers} NPCs): success {res['success_rate']}%, "
+          f"driving score {res['mean_driving_score']}, {steps} steps at "
+          f"{dt / steps * 1e3:.3f} ms per step, B2 launches {launches}",
+          flush=True)
+    return res
+
+
+def leaderboard_benchmark(scene, dev):
+    """(e) ``benchmark_policy.benchmark`` on the reference scene with the
+    bev policy (B1 once per step) and with the expert."""
+    for expert in (False, True):
+        before = bev_cuda.LIB.launches
+        out = io.StringIO()
+        t = time.time()
+        with contextlib.redirect_stdout(out):
+            rows = benchmark_policy.benchmark(
+                max_steps=SUITE_STEPS, expert=expert, device=dev,
+                scene=scene)
+        dt = synced_s(t)
+        line = json.loads(out.getvalue().strip().splitlines()[-1])
+        launches = bev_cuda.LIB.launches - before
+        steps = max(r["steps"] for r in rows)
+        if launches != (0 if expert else steps):
+            raise AssertionError(f"benchmark: {launches} B1 launches for "
+                                 f"{steps} steps")
+        if len(rows) != scene.n_routes or not np.isfinite(
+                line["mean_driving_score"]):
+            raise AssertionError("benchmark rows")
+        print(f"  benchmark_policy ({'expert' if expert else 'bev policy'}"
+              f", {len(rows)} routes x {steps} steps): mean driving score "
+              f"{line['mean_driving_score']}, completed "
+              f"{sum(r['completed_rate'] for r in rows):.0f}, collisions "
+              f"{sum(r['collision_rate'] for r in rows):.0f}, "
+              f"{dt / steps * 1e3:.3f} ms per step, B1 launches {launches}",
+              flush=True)
+
+
+def endless_run(dev):
+    """(g) The expert on the short-row endless suite at
+    ``obs_mode="state"`` for at most ``ENDLESS_STEPS`` steps of
+    ``ENDLESS_ENVS`` envs on row 0: it stops once an env has switched rows
+    and passed row 0's length, and raises if none has. Returns the scene
+    and the last render state."""
+    env = registry.make("Endless-v0", device=dev, **ENDLESS_ROWS)
+    scene = env.scene
+    cfg = dataclasses.replace(env.cfg, train=False, obs_mode="state")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    n = ENDLESS_ENVS
+    st, _, _ = reset_batch(scene, cfg, torch.zeros(n, dtype=torch.int32,
+                                                   device=dev), gen)
+    ap = make_autopilot((n,), dev)
+    row0 = float(scene.route_len_m[0])
+    best = torch.zeros(n, device=dev)
+    switched = torch.zeros(n, dtype=torch.bool, device=dev)
+    t = time.time()
+    for i in range(ENDLESS_STEPS):
+        ap, act = autopilot_act(scene, ap, st, obey_signals=True)
+        rid0 = st.route_id
+        st, out = step_batch(scene, cfg, st, act, gen)
+        ap = reset_autopilot_where(out.done, ap)
+        switched |= (st.route_id != rid0) & ~out.done
+        best = torch.maximum(best, out.info["route_completed_in_m"])
+        if bool((switched & (best > row0)).any()):
+            break
+    dt = synced_s(t)
+    ok = switched & (best > row0)
+    print(f"  endless expert ({n} envs, rows of {ENDLESS_ROWS['row_m']} m, "
+          f"{cfg.n_npc_vehicles} + {cfg.n_npc_walkers} NPCs): {i + 1} "
+          f"steps at {dt / (i + 1) * 1e3:.3f} ms per step, "
+          f"{int(switched.sum())} envs switched rows, best completed "
+          f"{float(best.max()):.1f} m of row 0's {row0:.1f} m, "
+          f"{int(ok.sum())} past it", flush=True)
+    if not bool(ok.any()):
+        raise AssertionError("no endless env switched rows and passed the "
+                             "first row's length")
+    return scene, out.render, switched
+
+
+def suites_card_vs_cpu(dev):
+    """(h) ``run_latched`` with the expert (``run_tier``'s loop) on
+    ``nocrash_suite(n_routes=2)`` at the regular tier for
+    ``CMP_TIER_STEPS`` steps, and ``DrivingEnv`` for ``CMP_ENV_STEPS``
+    steps, on the card and on the CPU with the same draws (made on the
+    CPU): latched booleans equal, scores within ``DEMO_TOL``;
+    observations 0 values differ, metrics and reward within
+    ``DEMO_TOL``."""
+    cpu = torch.device("cpu")
+    scene_c, cfg, _ = nocrash_suite(n_routes=2, device="cpu")
+    scene_g = scene_c.to(dev)
+    n = scene_c.n_routes
+    cfg_e = dataclasses.replace(nocrash_bench.tier_config(cfg, "bev6", True),
+                                max_time=CMP_TIER_STEPS * 0.1)
+    gen = torch.Generator()
+    gen.manual_seed(SEED)
+    reset_d = draw_reset(scene_c, cfg_e, n, gen)
+    gnss = draw_gnss(n, cpu, gen)
+    steps_d = [draw_step(scene_c, cfg_e, n, gen)
+               for _ in range(CMP_TIER_STEPS)]
+    outs = []
+    for sc in (scene_g, scene_c):
+        d = sc.device
+        latched, steps = run_latched(
+            sc, cfg_e, torch.arange(n, dtype=torch.int32, device=d),
+            nocrash_bench.LATCH_KEYS, CMP_TIER_STEPS, None, expert=True,
+            reset_draws=to_device(reset_d, d), reset_gnss=gnss.to(d),
+            env_draws=[to_device(e, d) for e in steps_d])
+        outs.append(({k: v.cpu() for k, v in latched.items()}, steps))
+    (g, g_steps), (c, c_steps) = outs
+    flags_equal = all(torch.equal(g[k], c[k]) for k in
+                      ("done", "route_completed", "collision"))
+    score_err = max_abs_diff(g["score_composed"], c["score_composed"])
+    print(f"  card vs CPU run_tier expert (NoCrash regular, {n} routes, "
+          f"{CMP_TIER_STEPS} steps): steps {g_steps} / {c_steps}, latched "
+          f"flags equal {flags_equal}, max |d score| {score_err:.3e}, "
+          f"scores {g['score_composed'].tolist()}", flush=True)
+    if not flags_equal or g_steps != c_steps or score_err > DEMO_TOL:
+        raise AssertionError("card and CPU tiers disagree")
+
+    cfg_d = dataclasses.replace(cfg, train=False)
+    gen.manual_seed(SEED + 1)
+    reset_d = draw_reset(scene_c, cfg_d, 1, gen)
+    gnss = draw_gnss(1, cpu, gen)
+    steps_d = [draw_step(scene_c, cfg_d, 1, gen)
+               for _ in range(CMP_ENV_STEPS)]
+    rng = np.random.default_rng(SEED)
+    actions = np.stack([rng.uniform(-0.2, 0.2, CMP_ENV_STEPS),
+                        rng.uniform(0.4, 1.0, CMP_ENV_STEPS)], 1)
+    runs = []
+    for sc in (scene_g, scene_c):
+        d = sc.device
+        env = DrivingEnv(sc, cfg_d, route_id=1, shuffle_tasks=False)
+        obs, met = env.reset(to_device(reset_d, d), gnss.to(d))
+        seq = [(obs, met, 0.0)]
+        for t in range(CMP_ENV_STEPS):
+            obs, met, rew, _, _ = env.step(actions[t],
+                                           to_device(steps_d[t], d))
+            seq.append((obs, met, rew))
+        runs.append(seq)
+    px = sum(int((a[0] != b[0]).sum()) for a, b in zip(*runs))
+    err = max(max(float(np.abs(a[1] - b[1]).max()), abs(a[2] - b[2]))
+              for a, b in zip(*runs))
+    print(f"  card vs CPU DrivingEnv (NoCrash regular, route 1, "
+          f"{CMP_ENV_STEPS} steps, {cfg_d.bev_width} px): {px} observation "
+          f"values differ, max |d metrics|, |d reward| {err:.3e}",
+          flush=True)
+    if px or err > DEMO_TOL:
+        raise AssertionError("card and CPU DrivingEnvs disagree")
+
+
+def dense_b2(scene, env6_cfg):
+    """(f) B2 at the NoCrash dense tier's 100 vehicles and 250 walkers
+    per env (351 boxes) on the rollout's 256 envs: against its plain
+    version at 0 values, timed beside the 20/50 time, with its shared
+    memory. Returns (max abs difference, the times)."""
+    cfg = dataclasses.replace(env6_cfg, n_npc_vehicles=100,
+                              n_npc_walkers=250)
+    for v, wk in ((env6_cfg.n_npc_vehicles, env6_cfg.n_npc_walkers),
+                  (100, 250)):
+        print(f"  bev6_raster shared memory per block at {v} vehicles + "
+              f"{wk} walkers: {bev6_cuda.shared_bytes(scene, v, wk)} bytes "
+              f"(48 KB without a raised limit)", flush=True)
+    ren = bev6_states(scene, cfg, ROLL_ENVS, SEED + 6)
+    err = check_kernel6(scene, cfg, ren)
+    inp = bev6_plain.bev6_inputs(scene, cfg, ren)
+    pro = bev6_cuda.bev6_prologue(scene, cfg, ren)
+    err_t, times = time_kernel(
+        "bev6_raster dense", scene, cfg, ren, inp,
+        bev_tiles.kernel_tables(scene, ren, inp), pro,
+        lambda: bev6_cuda.render_bev6_cuda(scene, cfg, ren, *pro),
+        lambda: bev6_cuda.render_bev6_cuda_batch(scene, cfg, ren),
+        lambda: bev6_plain.render_bev6_plain(cfg, inp, scene.bnd_dmax))
+    return max(err, err_t), times
+
+
+def suites_path(scene, env_cfg, env6_cfg, dev):
+    """The gym-style API and the policy benchmarks at the reference
+    widths: (a) the registry, (b) the vector env, (c) the four NoCrash
+    tiers and (d) the four CoRL task types through ``run_tier`` (the bev6
+    policy at ``ModelConfig()``, then the expert), (e) the leaderboard
+    benchmark, (g) the endless expert; every launch count is set to 0
+    just before (a) and read after (g). Then the comparisons: the switched
+    endless envs' render against B1's plain version, (f) B2 at the dense
+    tier, (h) card vs CPU. Returns (B1 launches, B2 launches, B2's max
+    abs difference at dense, its dense times)."""
+    w = env_cfg.bev_width
+    for lib in (bev_cuda.LIB, bev6_cuda.LIB):
+        lib.launches = 0
+    t = time.time()
+    registry_envs(dev, w)
+    progress("suites (a) registry", t)
+    t = time.time()
+    vec_env_run(dev)
+    progress("suites (b) vector env", t)
+    net6 = init_policy(ModelConfig(), (6, w, w), seed=SEED, device=dev)
+    t = time.time()
+    for name, env_id in NOCRASH_IDS.items():
+        env = registry.make(env_id, device=dev)
+        density = (env.cfg.n_npc_vehicles, env.cfg.n_npc_walkers)
+        if density != NOCRASH_TRAFFIC["Town01"][name]:
+            raise AssertionError(f"{env_id}: not the {name} densities")
+        tier(f"NoCrash {name}", env.scene, env.cfg, net6, False)
+    env = registry.make(NOCRASH_IDS["regular"], device=dev)
+    tier("NoCrash regular", env.scene, env.cfg, None, True)
+    progress("suites (c) NoCrash", t)
+    t = time.time()
+    for name, env_id in CORL_IDS.items():
+        env = registry.make(env_id, device=dev)
+        tier(f"CoRL {name}", env.scene, env.cfg, net6, False)
+    tier("CoRL navigation_dynamic", env.scene, env.cfg, None, True)
+    progress("suites (d) CoRL2017", t)
+    t = time.time()
+    leaderboard_benchmark(scene, dev)
+    progress("suites (e) leaderboard benchmark", t)
+    t = time.time()
+    end_scene, end_ren, switched = endless_run(dev)
+    progress("suites (g) endless", t)
+    torch.cuda.synchronize()
+    b1, b2 = bev_cuda.LIB.launches, bev6_cuda.LIB.launches
+    print(f"  launches on the suites path: B1 {b1}, B2 {b2}", flush=True)
+    if not b1 or not b2:
+        raise AssertionError("a kernel was not launched on the suites path")
+
+    t = time.time()
+    if not bool((end_ren.route_id[switched] != 0).all()):
+        raise AssertionError("a switched endless env renders row 0")
+    compare("bev_raster", bev_cuda.render_bev_cuda_batch(end_scene, env_cfg,
+                                                          end_ren),
+            bev_plain.render_bev_batch(end_scene, env_cfg, end_ren),
+            f"endless rows padded to {end_scene.route_xy.shape[1]} points, "
+            f"{int(switched.sum())} envs on their next row")
+    err, times = dense_b2(scene, env6_cfg)
+    progress("suites (f) B2 at the dense tier", t)
+    t = time.time()
+    suites_card_vs_cpu(dev)
+    progress("suites (h) card vs CPU", t)
+    return b1, b2, err, times
+
+
 def kernel_line(name, source, replaces, launches, err, times):
     k_ms, p_ms, b_ms, b_by = times
     return {
@@ -1555,6 +1937,14 @@ def main() -> int:
     launches += tree_bc_path(scene, env_cfg, env6_cfg, model_cfg, preset,
                              gen, dev)
     progress("tree bc", t)
+
+    # --- the gym-style API, the suites and the policy benchmarks ---
+    t = time.time()
+    b1, b2, err_dense, _ = suites_path(scene, env_cfg, env6_cfg, dev)
+    launches += b1
+    launches6 += b2
+    err6 = max(err6, err_dense)
+    progress("suites", t)
 
     torch.cuda.synchronize()
     print(json.dumps({"kernels": [

@@ -21,6 +21,7 @@ import torch
 
 from gail_carla_tpu_torch.config import EnvConfig
 from gail_carla_tpu_torch.cuda_build import CudaLibrary
+from gail_carla_tpu_torch.ops.bev import ROUTE_STRIDE, ROUTE_WINDOW
 from gail_carla_tpu_torch.ops.bev6 import light_values
 from gail_carla_tpu_torch.ops.bev_cuda import base_args, check_tensor, launch
 from gail_carla_tpu_torch.ops.bev_full import TL_LINE_HALF_W, WALKER_HALF
@@ -33,6 +34,23 @@ LIB = CudaLibrary(
     "bev6_raster.cu", "bev6_raster_launch",
     [_P] * 23 + [_I] * 17 + [_F] * 15 + [_P],
 )
+
+
+def shared_bytes(scene, n_vehicles: int, n_walkers: int) -> int:
+    """Dynamic shared memory of one B2 block for ``scene`` and these actor
+    counts (``smem_bytes`` of ``csrc/bev_raster_common.cuh``): each staged
+    item's coefficients as floats (9 per boundary edge, 8 per lane or
+    route capsule and stop line, 6 per box: the ego, the vehicles and the
+    walkers) and each of the block's 8 warps' survivor lists as 16-bit
+    indices. A launch without a raised limit may use 48 KB; past that the
+    launch fails with its CUDA error."""
+    mb = scene.cell_bnd.shape[2]
+    ml = scene.cell_lane.shape[2]
+    mt = scene.cell_tl.shape[2]
+    k = len(range(0, ROUTE_WINDOW, ROUTE_STRIDE)) - 1
+    boxes = 1 + n_vehicles + n_walkers
+    floats = mb * 9 + (ml + k) * 8 + mt * 8 + boxes * 6
+    return 4 * floats + 2 * 8 * (mb + ml + k + mt + boxes)
 
 
 def bev6_prologue(scene, cfg: EnvConfig, render_state):

@@ -29,43 +29,43 @@ class TownRaster:
     ppm: float
 
 
-def _stamp_polyline(
-    img: np.ndarray,
-    pts_px: np.ndarray,
-    half_width_px: float,
-    value,
-    s_px: np.ndarray = None,
-):
-    """Write ``value`` (or per-point ``s_px`` + 1) into all pixels within
-    ``half_width_px`` of the polyline. Windowed per segment; offline-only."""
+# segments stamped per vectorised pass (over their joint pixel window)
+SEG_GROUP = 32
+
+
+def _stamp_polyline(img: np.ndarray, pts_px: np.ndarray,
+                    half_width_px: float, value):
+    """Write ``value`` into all pixels within ``half_width_px`` of the
+    polyline, ``SEG_GROUP`` segments at a time over their joint window.
+    Each pixel-segment distance is the float64 expression of the JAX
+    package's per-segment loop, so the mask is the same; a pixel outside
+    a segment's own window is more than the half width from it."""
     H, W = img.shape
     r = half_width_px
-    for i in range(len(pts_px) - 1):
-        a, b = pts_px[i], pts_px[i + 1]
-        x0 = max(int(math.floor(min(a[0], b[0]) - r)), 0)
-        x1 = min(int(math.ceil(max(a[0], b[0]) + r)) + 1, W)
-        y0 = max(int(math.floor(min(a[1], b[1]) - r)), 0)
-        y1 = min(int(math.ceil(max(a[1], b[1]) + r)) + 1, H)
+    pts = np.asarray(pts_px, np.float64)
+    for lo in range(0, len(pts) - 1, SEG_GROUP):
+        a = pts[lo:lo + SEG_GROUP]
+        b = pts[lo + 1:lo + SEG_GROUP + 1]
+        a = a[:len(b)]
+        ends = np.concatenate([a, b])
+        x0 = max(int(math.floor(ends[:, 0].min() - r)), 0)
+        x1 = min(int(math.ceil(ends[:, 0].max() + r)) + 1, W)
+        y0 = max(int(math.floor(ends[:, 1].min() - r)), 0)
+        y1 = min(int(math.ceil(ends[:, 1].max() + r)) + 1, H)
         if x0 >= x1 or y0 >= y1:
             continue
-        xs = np.arange(x0, x1, dtype=np.float64)
-        ys = np.arange(y0, y1, dtype=np.float64)
-        gx, gy = np.meshgrid(xs, ys)
+        gx = np.arange(x0, x1, dtype=np.float64)[None, None, :]
+        gy = np.arange(y0, y1, dtype=np.float64)[None, :, None]
         ab = b - a
-        denom = float(ab @ ab) + 1e-12
-        t = ((gx - a[0]) * ab[0] + (gy - a[1]) * ab[1]) / denom
+        denom = np.array([float(v @ v) for v in ab]) + 1e-12
+        ax, ay = a[:, 0, None, None], a[:, 1, None, None]
+        abx, aby = ab[:, 0, None, None], ab[:, 1, None, None]
+        t = ((gx - ax) * abx + (gy - ay) * aby) / denom[:, None, None]
         t = np.clip(t, 0.0, 1.0)
-        dx = gx - (a[0] + t * ab[0])
-        dy = gy - (a[1] + t * ab[1])
-        m = dx * dx + dy * dy <= r * r
-        win = img[y0:y1, x0:x1]
-        if s_px is None:
-            win[m] = value
-        else:
-            sval = (s_px[i] + t * (s_px[i + 1] - s_px[i]) + 1.0).astype(
-                img.dtype
-            )
-            np.maximum(win, np.where(m, sval, 0), out=win)
+        dx = gx - (ax + t * abx)
+        dy = gy - (ay + t * aby)
+        m = (dx * dx + dy * dy <= r * r).any(axis=0)
+        img[y0:y1, x0:x1][m] = value
 
 
 def _bounds(graph: LaneGraph, margin: float = 40.0):

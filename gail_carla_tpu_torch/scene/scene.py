@@ -6,8 +6,9 @@ its result is a ``TorchScene`` with the field names of ``StaticScene``
 (``scene.py:35-141``), holding tensors, and moved with ``.to(device)``.
 
 The map is stored as capsule segments bucketed into a spatial grid
-(scene/segments.py). The options of ``build_scene`` that only the town
-importers use (precomputed dense routes, ground-truth geometry, scenario
+(scene/segments.py). ``build_scene`` takes precomputed dense routes
+(``dense=``, the endless suite's chained rows). Its options that only the
+town importers and scripted tasks use (ground-truth geometry, scenario
 actors, obstacles, sidewalk paths) are not ported: the procedural scene
 leaves those tables at their empty defaults.
 """
@@ -187,9 +188,14 @@ def build_scene(
     plan_pts_pad: int = 32,
     cell_size: float = 32.0,
     n_patrols: int = 32,
+    dense=None,
 ) -> TorchScene:
-    """Compile a lane graph and its routes into a CPU ``TorchScene``."""
-    dense = [trace_mod.trace_route(graph, r.waypoints) for r in route_defs]
+    """Compile a lane graph and its routes into a CPU ``TorchScene``.
+    ``dense`` optionally supplies the routes' ``DenseRoute``s instead of
+    tracing ``route_defs`` through the graph."""
+    if dense is None:
+        dense = [trace_mod.trace_route(graph, r.waypoints)
+                 for r in route_defs]
 
     R = len(dense)
     # +96 headroom keeps the route windows at the route tail in bounds

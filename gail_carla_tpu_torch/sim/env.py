@@ -267,6 +267,34 @@ def reset_batch(scene, cfg: EnvConfig, route_ids: torch.Tensor,
     return observe(scene, cfg, states, gnss_noise, generator)
 
 
+def chain_endless(scene, state: WorldState) -> WorldState:
+    """Endless target extension (task_vehicle.py:67-82,143-145): an env
+    whose cursor is within 2 points of its row's end continues on
+    ``scene.endless_next[row]``, which starts at this row's end pose.
+    Completed metres and the episode's route length both carry over;
+    ``plan_idx`` restarts at -1 and ``advance_plan`` picks the new row's
+    first target at the step's observe (``env.py:232-257``)."""
+    rid0 = state.route_id
+    n_cur = scene.route_n[rid0.long()]
+    rid_next = scene.endless_next[rid0.long()]
+    switch = (state.head >= n_cur - 2) & (rid_next != rid0)
+    completed_so_far = take_row(scene.route_s, rid0, state.head) - state.s0
+    zero = torch.zeros_like(state.head)
+    return dataclasses.replace(
+        state,
+        route_id=torch.where(switch, rid_next, rid0).to(torch.int32),
+        head=torch.where(switch, zero, state.head),
+        last_head=torch.where(switch, zero, state.last_head),
+        s0=torch.where(switch, -completed_so_far, state.s0),
+        route_len_ep=torch.where(
+            switch, state.route_len_ep + scene.route_len_m[rid_next.long()],
+            state.route_len_ep,
+        ),
+        plan_idx=torch.where(switch, torch.full_like(state.plan_idx, -1),
+                             state.plan_idx),
+    )
+
+
 def step_batch(
     scene,
     cfg: EnvConfig,
@@ -284,7 +312,7 @@ def step_batch(
     the finished episode's reward/done/info. The draws the step makes
     (see ``StepDraws``) come from ``generator`` unless given."""
     if cfg.endless_extension and scene.endless_next is not None:
-        raise NotImplementedError("endless route chaining is not ported yet")
+        state = chain_endless(scene, state)
     steer, throttle = action[:, 0], action[:, 1]
     brake = action[:, 2] if action.shape[1] > 2 else torch.zeros_like(steer)
     ego = step_vehicle(state.ego, steer, throttle, brake, cfg.dt, params)

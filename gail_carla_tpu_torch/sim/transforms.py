@@ -1,5 +1,5 @@
-"""2D rigid-frame geometry on batched tensors, plus the numpy GPS
-conversion the host scene builder needs.
+"""2D rigid-frame geometry on batched tensors, and the GPS conversion (of
+tensors, and in numpy for the host scene builder).
 
 Port of ``gail_carla_tpu/sim/transforms.py``. Conventions: positions are
 metres in the world frame (x east, y "CARLA south"), ``yaw`` in radians.
@@ -37,6 +37,17 @@ def vec_global_to_ref(vec: torch.Tensor, ref_yaw: torch.Tensor):
     x = vec[..., 0] * c + vec[..., 1] * s
     y = -vec[..., 0] * s + vec[..., 1] * c
     return torch.stack([x, y], dim=-1)
+
+
+def location_to_gps(xy: torch.Tensor) -> torch.Tensor:
+    """World metres -> (lat, lon) degrees, Web-Mercator at the equator
+    (route_manipulation.py:23-29), latitude through the Gudermannian form
+    as in ``location_to_gps_np``."""
+    lon = xy[..., 0] * 180.0 / (math.pi * EARTH_RADIUS_EQUA)
+    lat = (360.0 / math.pi) * torch.atan(
+        torch.tanh(-xy[..., 1] / (2.0 * EARTH_RADIUS_EQUA))
+    )
+    return torch.stack([lat, lon], dim=-1)
 
 
 def location_to_gps_np(xy: np.ndarray) -> np.ndarray:

@@ -19,6 +19,16 @@ BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "gail_carla_tpu",
            "PIL")
 TEXT_SOURCES = (".cu", ".cuh", ".h", ".hpp", ".cpp", ".cc")
 MAX_FILE_BYTES = 200 * 1024
+ENV_API_MODULES = (
+    "gail_carla_tpu_torch.envs", "gail_carla_tpu_torch.envs.spaces",
+    "gail_carla_tpu_torch.envs.suites", "gail_carla_tpu_torch.envs.gym_env",
+    "gail_carla_tpu_torch.envs.vec_env", "gail_carla_tpu_torch.envs.registry",
+    "gail_carla_tpu_torch.sim.observations",
+    "gail_carla_tpu_torch.utils.monitor",
+    "gail_carla_tpu_torch.tools.benchmark_policy",
+    "gail_carla_tpu_torch.tools.nocrash_bench",
+    "gail_carla_tpu_torch.tools.corl_bench",
+)
 
 
 def _port_files():
@@ -69,7 +79,9 @@ def test_port_sources_import_no_jax():
 
 def test_port_imports_with_jax_blocked():
     """Import every port module and chip_smoke (without running it) in a
-    fresh interpreter where JAX and the JAX package cannot be imported."""
+    fresh interpreter where JAX and the JAX package cannot be imported;
+    the env API and the policy benchmarks are among them."""
+    assert set(ENV_API_MODULES) <= set(_port_modules())
     code = "\n".join([
         "import importlib, sys",
         f"for name in {BLOCKED!r}:",

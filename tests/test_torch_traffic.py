@@ -86,10 +86,11 @@ def jax_reset_draws(k_reset, cfg, n_patrols):
                                    cfg.n_npc_walkers, n_patrols))
 
 
-def jax_step_draws(rngs, done, cfg, n_patrols):
+def jax_step_draws_raw(rngs, done, cfg, n_patrols):
     """Per env, every draw ``step_env`` makes from its pre-step key: the
     auto-reset's draws, the GNSS noise of the observe after the (possible)
-    reset, and the walkers' crossing coin; as a port ``StepDraws``."""
+    reset, and the walkers' crossing coin, as JAX arrays (jittable with
+    ``cfg`` and ``n_patrols`` fixed)."""
     import jax
     import jax.numpy as jnp
 
@@ -101,12 +102,23 @@ def jax_step_draws(rngs, done, cfg, n_patrols):
         coin = jax.random.uniform(k_npc, (cfg.n_npc_walkers,))
         return restart, pos, traffic, jax.random.normal(k, (2,)), coin
 
-    restart, pos, traffic, gnss, coin = jax.vmap(one)(rngs, done)
+    return jax.vmap(one)(rngs, done)
+
+
+def step_draws_from_raw(raw):
+    """``jax_step_draws_raw``'s arrays as a port ``StepDraws``."""
+    restart, pos, traffic, gnss, coin = raw
     return port_env.StepDraws(
         reset_draws=port_env.ResetDraws(
             _t(restart), _t(pos), TrafficResetDraws(*map(_t, traffic))),
         gnss_noise=_t(gnss), traffic_coin=_t(coin),
     )
+
+
+def jax_step_draws(rngs, done, cfg, n_patrols):
+    """``jax_step_draws_raw`` as a port ``StepDraws``."""
+    return step_draws_from_raw(jax_step_draws_raw(rngs, done, cfg,
+                                                  n_patrols))
 
 
 def jax_batch_reset_draws(key, n, cfg, n_patrols):
