@@ -22,9 +22,9 @@ the training entry point ``train.run``.
 - the ``"train bev"`` path: ``train.run`` at the reference preset: the
   scripted expert's demos with noise (``generate_demos``) on the 9
   training routes and the held-out route, the expert and validation
-  buffers, two updates (10 envs x 720 steps, the packed observation
-  store, critic epochs 6 then 5 with the gradient penalty, 16 PPO epochs
-  of 128-sample minibatches), the evaluation on the held-out route, the
+  buffers, ``TRAIN_UPDATES`` update(s) (10 envs x 720 steps, the packed
+  observation store, 6 warm-up critic epochs with the gradient penalty,
+  16 PPO epochs of 128-sample minibatches), the evaluation on the held-out route, the
   metrics log and the checkpoints; the demos' ms per step and valid rows
   per route, each update's wall time, its per-part breakdown (CUDA
   events) and B1's launches per part of the run. The last checkpoint must
@@ -61,7 +61,25 @@ the training entry point ``train.run``.
   timed, with its shared memory per block, and a tier and a
   ``DrivingEnv`` run on the card against the CPU with the same draws
   (latched flags and 0 observation values equal, scores and metrics
-  within ``DEMO_TOL``).
+  within ``DEMO_TOL``);
+- the ``"options"`` path, the options of ported modules at the same
+  widths: (a) the state-vector observation (``obs_mode="state"``): one
+  ``algo="ppo"`` update with ``ModelConfig()`` at the preset's 10 envs
+  and at ``STATE_BIG_ENVS`` envs (rollout / PPO split, the float32
+  store's bytes), the scripted expert's state demos into
+  ``build_expert_buffer`` and ``evaluate_policy`` of the state policy;
+  (b) the state observation of ``ROLL_ENVS`` envs and a toy state update
+  on the card against the CPU; (c) ``leaderboard_suite(scenario_actors=
+  ...)`` with one scripted adversary per route and ``SA_SLOTS`` scenario
+  slots: the compliant expert yields to it (0 vehicle collisions, every
+  route within ``SA_GAP`` m of its adversary) and the bev6 policy draws
+  the slots through B2; (d) B2 at 20 NPC vehicles + the scenario slots
+  (1 live, 2 parked ~1e6 m away) + 50 walkers on ``ROLL_ENVS`` envs
+  against its plain version (0 values differ), timed, with its shared
+  memory; (e) the reference scene with the grid's building obstacles: a
+  hard right turn scores a layout collision (penalty 65) in every env,
+  the expert none, and the obstacle test on ``OB_POSES`` random poses and
+  the cameras on the card agree with the CPU.
 
 Each kernel is checked against its plain version on the same render
 states of the rollout's 256 envs, at W=192 and W=100, with envs placed on
@@ -110,7 +128,7 @@ import torch
 from gail_carla_tpu_torch import cuda_build
 from gail_carla_tpu_torch import train as train_mod
 from gail_carla_tpu_torch.agents.autopilot import (
-    autopilot_act, reset_autopilot_where,
+    TARGET_SPEED, autopilot_act, reset_autopilot_where,
 )
 from gail_carla_tpu_torch.agents.controllers import make_autopilot
 from gail_carla_tpu_torch.algo import bc as bc_mod
@@ -119,8 +137,8 @@ from gail_carla_tpu_torch.algo import ppo as ppo_mod
 from gail_carla_tpu_torch.algo import wdgail as wdgail_mod
 from gail_carla_tpu_torch.algo.buffers import (
     EXPERT_CHUNK,
-    build_expert_buffer, fetch_rollout_obs, map_state, pack_bev_obs,
-    unpack_bev_obs,
+    build_expert_buffer, fetch_expert_obs, fetch_rollout_obs, map_state,
+    pack_bev_obs, unpack_bev_obs,
 )
 from gail_carla_tpu_torch.algo.evaluate import evaluate_policy, run_latched
 from gail_carla_tpu_torch.algo.expert import (
@@ -130,19 +148,32 @@ from gail_carla_tpu_torch.algo.learner import UpdateDraws, WDGAILLearner
 from gail_carla_tpu_torch.algo.rollout import collect_rollout
 from gail_carla_tpu_torch.config import EnvConfig, ModelConfig
 from gail_carla_tpu_torch.convert import (
-    init_critic_flax_params, init_flax_params, init_policy,
+    init_critic_flax_params, init_flax_params, init_policy, policy_from_flax,
 )
 from gail_carla_tpu_torch.envs import registry
 from gail_carla_tpu_torch.envs.gym_env import DrivingEnv
-from gail_carla_tpu_torch.envs.suites import NOCRASH_TRAFFIC, nocrash_suite
+from gail_carla_tpu_torch.envs.suites import (
+    NOCRASH_TRAFFIC, leaderboard_suite, nocrash_suite,
+)
 from gail_carla_tpu_torch.envs.vec_env import VecEnv, host_outputs
 from gail_carla_tpu_torch.models import policy as policy_mod
 from gail_carla_tpu_torch.ops import bev as bev_plain
 from gail_carla_tpu_torch.ops import bev6 as bev6_plain
-from gail_carla_tpu_torch.ops import bev6_cuda, bev_cuda, bev_tiles
+from gail_carla_tpu_torch.ops import bev6_cuda, bev_cuda, bev_tiles, camera
 from gail_carla_tpu_torch.ops.bev import INV_255, ROUTE_HALF_W
 from gail_carla_tpu_torch.ops.bev_full import TL_LINE_HALF_W, render_bev_full
-from gail_carla_tpu_torch.scene.scene import make_benchmark_scene
+from gail_carla_tpu_torch.ops.gae import compute_returns
+from gail_carla_tpu_torch.ops.state_obs import (
+    STATE_OBS_DIM, state_observation_batch,
+)
+from gail_carla_tpu_torch.scene.routes import generate_routes
+from gail_carla_tpu_torch.scene.scene import build_scene, make_benchmark_scene
+from gail_carla_tpu_torch.scene.town import (
+    grid_building_obstacles, make_grid_town,
+)
+from gail_carla_tpu_torch.scene.trace import trace_route
+from gail_carla_tpu_torch.sim.collisions import obstacle_collision
+from gail_carla_tpu_torch.sim.dynamics import DEFAULT_VEHICLE, VehicleState
 from gail_carla_tpu_torch.sim.env import (
     RenderState, draw_gnss, draw_reset, draw_step, reset_batch, step_batch,
 )
@@ -171,7 +202,7 @@ ROLL_ENVS, ROLL_STEPS = 256, 32
 # with the same seeds every training route's first episode ends by step
 # 1,487 and route 3's by 1,166; the card draws another stream, hence the
 # margin)
-TRAIN_UPDATES, DEMO_STEPS = 2, 1600
+TRAIN_UPDATES, DEMO_STEPS = 1, 1600
 # the card-vs-CPU update's expert demos: route 0 of the smoke scene ends
 # its first episode near step 520
 SMOKE_DEMO_STEPS = 600
@@ -191,22 +222,22 @@ PEAK_BYTES_PER_S = 3.35e12
 # the update's steps per env from the tree, the evaluations' step cap,
 # the steps that fill the full render's ring, the card-vs-CPU tree
 # (routes x steps)
-TREE_ROUTES, TREE_STEPS = 10, 24
-BC_EPOCHS = 3
-TREE_UPDATE_STEPS = 64
+TREE_ROUTES, TREE_STEPS = 10, 16
+BC_EPOCHS = 2
+TREE_UPDATE_STEPS = 16
 TREE_EVAL_STEPS = 150
 RING_STEPS = 22
-CMP_ROUTES, CMP_STEPS = 2, 10
+CMP_ROUTES, CMP_STEPS = 2, 3
 # the suites phase: steps of each DrivingEnv the registry makes, the
 # vector env (envs x steps), the step cap of each NoCrash tier, CoRL task
 # type and leaderboard benchmark (the tools' 2,400-6,000 cut), the endless
 # expert (envs x at most steps), the card-vs-CPU tier's steps and
 # DrivingEnv's steps
-REGISTRY_STEPS = 10
+REGISTRY_STEPS = 5
 VEC_ENVS, VEC_STEPS = 16, 50
-SUITE_STEPS = 20
+SUITE_STEPS = 10
 ENDLESS_ENVS, ENDLESS_STEPS = 8, 400
-CMP_TIER_STEPS, CMP_ENV_STEPS = 100, 20
+CMP_TIER_STEPS, CMP_ENV_STEPS = 25, 20
 # the registry's ids driven in the suites phase, one per family; Endless
 # with the short rows of the endless check
 REGISTRY_IDS = ("LeaderBoard-v0", "NoCrash-v2", "CoRL2017-v1",
@@ -215,6 +246,20 @@ ENDLESS_ROWS = dict(n_rows=6, row_m=150.0)
 NOCRASH_IDS = {"empty": "NoCrash-v0", "regular": "NoCrash-v1",
                "dense": "NoCrash-v2", "leaderboard": "NoCrash-v3"}
 CORL_IDS = {t: f"CoRL2017-v{i}" for i, t in enumerate(TASK_TYPES)}
+# the options phase: (a) steps per env of the state path's update at the
+# preset's envs, the larger update's envs and steps per env, the state
+# demos' steps per route, the state evaluation's step cap; (b) the state observation's card-vs-CPU bound;
+# (c) the adversary's parking point along each route (the least distance
+# and the straight road before it), the scenario slots
+# per env (1 live, 2 parked), the expert's step cap, the gap it must
+# close and the steps it then keeps driving; (e) the hard right turn's
+# steps, the expert's steps and the random poses of the card-vs-CPU SAT
+STATE_STEPS, STATE_BIG_ENVS, STATE_BIG_STEPS = 16, 256, 8
+STATE_DEMO_STEPS, STATE_EVAL_STEPS = 50, 100
+STATE_OBS_ATOL = 1e-6
+SA_AHEAD_M, SA_STRAIGHT_M, SA_SLOTS = 45.0, 30.0, 3
+SA_EXPERT_STEPS, SA_GAP, SA_HOLD = 400, 20.0, 30
+OB_STEPS, OB_EXPERT_STEPS, OB_POSES = 240, 120, 4096
 SEED = 0
 T0 = time.time()
 
@@ -1032,6 +1077,19 @@ def demos_card_vs_cpu(seed: int, dev):
         raise AssertionError("card and CPU demos disagree")
 
 
+def check_losses(what: str, got: dict, want: dict) -> float:
+    """Raises unless every value of ``got`` (card) is within the CPU
+    tests' tolerance of ``want`` (CPU); returns the worst relative
+    difference."""
+    worst = 0.0
+    for k, v in want.items():
+        a, b = float(got[k]), float(v)
+        if abs(a - b) > LOSS_ATOL + LOSS_RTOL * abs(b):
+            raise AssertionError(f"card vs CPU {what}: {k} {a} vs {b}")
+        worst = max(worst, abs(a - b) / max(abs(b), 1e-30))
+    return worst
+
+
 def train_card_vs_cpu(seed: int):
     """One float32 update at the smoke preset (64 px, convs 8-16, 4 envs x
     ``SMOKE_STEPS_PER_ENV`` steps) on the card and on the CPU from the same
@@ -1095,12 +1153,7 @@ def train_card_vs_cpu(seed: int):
     if not torch.equal(ge.obs.cpu(), ce.obs):
         raise AssertionError("the expert's packed obs differ between card "
                              "and CPU")
-    worst_rel = 0.0
-    for k, v in cm.items():
-        a, b = float(gm[k]), float(v)
-        if abs(a - b) > LOSS_ATOL + LOSS_RTOL * abs(b):
-            raise AssertionError(f"card vs CPU update: {k} {a} vs {b}")
-        worst_rel = max(worst_rel, abs(a - b) / max(abs(b), 1e-30))
+    worst_rel = check_losses("update", gm, cm)
     worst_param = 0.0
     for name, g, c in (("policy", gs.policy, cs.policy),
                        ("critic", gs.disc, cs.disc)):
@@ -1806,6 +1859,493 @@ def suites_path(scene, env_cfg, env6_cfg, dev):
     return b1, b2, err, times
 
 
+# --- the options phase ------------------------------------------------------
+def state_updates(scene, model_cfg: ModelConfig, tcfg, dev):
+    """(a) One ``algo="ppo"`` update at ``obs_mode="state"`` with
+    ``ModelConfig()`` at the preset's ``n_envs`` x ``STATE_STEPS`` steps
+    and at ``STATE_BIG_ENVS`` x ``STATE_BIG_STEPS`` (16 PPO epochs of
+    128-sample minibatches): wall s, its rollout / PPO split (CUDA
+    events), the float32 store's bytes. Raises on a non-finite metric or
+    weight or a store of the wrong shape. Returns the last policy."""
+    env = EnvConfig(train=True, obs_mode="state")
+    for n, steps in ((tcfg.n_envs, STATE_STEPS),
+                     (STATE_BIG_ENVS, STATE_BIG_STEPS)):
+        t_cfg = dataclasses.replace(tcfg, algo="ppo", bcgail=False,
+                                    n_envs=n, num_steps=steps * n)
+        learner = WDGAILLearner(scene, env, model_cfg, t_cfg, None)
+        state = learner.init_state()
+        timer = PartTimer()
+        t0 = time.time()
+        with timer:
+            state, metrics = learner.update(state)
+        wall = synced_s(t0)
+        parts = timer.ms()
+        check_finite(f"state update at {n} envs", metrics,
+                     (("policy", state.policy),))
+        obs = timer.last["rollout"][3].obs
+        if (obs.dtype != torch.float32
+                or tuple(obs.shape) != (steps + 1, n, STATE_OBS_DIM)):
+            raise AssertionError(f"state store {tuple(obs.shape)} "
+                                 f"{obs.dtype}")
+        n_mb = t_cfg.ppo_epoch * (n * steps // t_cfg.mini_batch_size)
+        print(f"  state ppo update ({n} envs x {steps} steps, {n_mb} "
+              f"PPO minibatches): wall {wall:.3f} s; rollout "
+              f"{parts['rollout']:.1f} ms ({parts['rollout'] / steps:.3f}"
+              f" ms per step), ppo_update {parts['ppo_update']:.1f} ms "
+              f"({parts['ppo_update'] / n_mb:.3f} ms per minibatch); stored "
+              f"obs {tuple(obs.shape)} float32, {obs.numel() * 4} bytes; "
+              f"env_reward_mean {float(metrics['env_reward_mean']):.5g}",
+              flush=True)
+    return state.policy
+
+
+def state_demos_and_eval(scene, net, tcfg, dev):
+    """(a) ``generate_demos`` (``STATE_DEMO_STEPS`` steps on the training
+    routes) and ``build_expert_buffer`` at ``"state"`` (the float32 rows),
+    then ``evaluate_policy`` of the state policy on the held-out route.
+    The cut demos end no episode, so every row stands in as valid. Raises
+    unless the buffer's rows equal their re-derived observations and the
+    evaluation is finite."""
+    env = EnvConfig(train=True, obs_mode="state")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    routes = list(tcfg.routes)
+    t0 = time.time()
+    demos = generate_demos(scene, train_mod.demo_config(env), gen, routes,
+                           STATE_DEMO_STEPS)
+    s_demo = synced_s(t0)
+    demos = dataclasses.replace(demos, valid=torch.ones_like(demos.valid))
+    t0 = time.time()
+    buf = build_expert_buffer(scene, env, demos)
+    s_buf = synced_s(t0)
+    idx = torch.arange(0, buf.size, 7, device=dev)
+    again = fetch_expert_obs(scene, env, dataclasses.replace(buf, obs=None),
+                             idx)
+    if (buf.obs.dtype != torch.float32
+            or not torch.equal(buf.obs[idx], again)):
+        raise AssertionError("the state expert buffer's rows differ from "
+                             "their observations")
+    t0 = time.time()
+    ev = evaluate_policy(scene, env, net, gen, route_id=EVAL_ROUTE,
+                         n_envs=EVAL_ENVS, max_steps=STATE_EVAL_STEPS)
+    s_eval = synced_s(t0)
+    if not torch.isfinite(ev["reward"]).all():
+        raise AssertionError("non-finite state evaluation reward")
+    steps = eval_steps_run(ev, STATE_EVAL_STEPS)
+    print(f"  state generate_demos {len(routes)} envs x {STATE_DEMO_STEPS} "
+          f"steps: {s_demo * 1e3 / STATE_DEMO_STEPS:.3f} ms per step; "
+          f"build_expert_buffer {buf.size} rows x {STATE_OBS_DIM} float32 "
+          f"in {s_buf:.3f} s; evaluate_policy {EVAL_ENVS} envs x {steps} "
+          f"steps: {s_eval * 1e3 / steps:.3f} ms per step, score_route "
+          f"{float(ev['score_route'].float().mean()):.3f}", flush=True)
+
+
+def state_card_vs_cpu(scene, seed: int):
+    """(b) ``state_observation_batch`` on ``ROLL_ENVS`` route poses of the
+    reference scene, a float32 state rollout at the smoke preset (4 envs
+    x ``SMOKE_STEPS_PER_ENV`` steps) and one ``ppo_update`` from the CPU's
+    rollout, on the card and on the CPU with the same inputs and draws
+    (made on the CPU). Raises unless the observations agree within
+    ``STATE_OBS_ATOL``, the rollouts' observations, values and log-probs
+    within 1e-6, the update's losses within the CPU tests' tolerance and
+    its weights within ``PARAM_ATOL``. The update starts from one rollout
+    on both devices: the toy env's advantages are ~1e-3, so their
+    normalisation turns the two rollouts' ulp-level differences of values
+    and returns into relative ones 1e3 times larger, which Adam carries
+    to a few weights past ``PARAM_ATOL``. The whole learner update on
+    each device's own rollout is run too: its losses are held to the
+    same tolerance and its weights' difference is printed."""
+    cpu = torch.device("cpu")
+    env = EnvConfig(train=True, obs_mode="state")
+    ren = route_poses(scene, ROLL_ENVS, seed)
+    rng = np.random.default_rng(seed)
+    met = torch.from_numpy(np.stack([
+        rng.normal(0.0, 2e-4, ROLL_ENVS), rng.normal(0.0, 2e-4, ROLL_ENVS),
+        rng.uniform(0.0, 8.0, ROLL_ENVS), rng.integers(1, 7, ROLL_ENVS)],
+        1).astype(np.float32))
+    got = state_observation_batch(scene, env, ren, met.to(scene.device))
+    want = state_observation_batch(scene.to(cpu), env,
+                                   map_state(lambda a: a.cpu(), ren), met)
+    obs_err = max_abs_diff(got, want)
+
+    smoke = make_presets()["smoke"]
+    model_cfg = smoke["model"]
+    tcfg = dataclasses.replace(
+        smoke["train"], algo="ppo", bcgail=False,
+        num_steps=SMOKE_STEPS_PER_ENV * smoke["train"].n_envs)
+    n, steps = tcfg.n_envs, tcfg.steps_per_env
+    total = n * steps
+    gen = torch.Generator()
+    gen.manual_seed(seed)
+    cpu_scene = make_benchmark_scene(**smoke["scene"], device=cpu)
+    reset = draw_reset(cpu_scene, env, n, gen)
+    gnss = draw_gnss(n, cpu, gen)
+    noise = torch.randn((steps, n, 2), generator=gen)
+    env_draws = [draw_step(cpu_scene, env, n, gen) for _ in range(steps)]
+    perms = ppo_mod.draw_perms(
+        tcfg.ppo_epoch, total,
+        total // tcfg.mini_batch_size * tcfg.mini_batch_size, cpu, gen)
+    shape = (STATE_OBS_DIM,)
+    pparams = init_flax_params(model_cfg, shape, seed)
+    dparams = init_critic_flax_params(model_cfg, shape, seed + 1)
+    whole = []
+    for d in (scene.device, cpu):
+        sc = cpu_scene if d == cpu else cpu_scene.to(d)
+        learner = WDGAILLearner(sc, env, model_cfg, tcfg, None,
+                                policy_params=pparams, disc_params=dparams)
+        state = learner.init_state(reset_draws=to_device(reset, d),
+                                   reset_gnss=gnss.to(d))
+        state, metrics = learner.update(state, UpdateDraws(
+            action_noise=noise.to(d),
+            env_draws=[to_device(e, d) for e in env_draws],
+            ppo_perms=perms.to(d)))
+        whole.append((metrics, state.policy.state_dict()))
+    whole_rel = check_losses("whole state update", whole[0][0], whole[1][0])
+    whole_param = max(max_abs_diff(v, whole[1][1][k])
+                      for k, v in whole[0][1].items())
+    routes = torch.tensor(tcfg.routes)[torch.arange(n) % len(tcfg.routes)]
+    ros = []
+    for d in (scene.device, cpu):
+        sc = cpu_scene if d == cpu else cpu_scene.to(d)
+        net = policy_from_flax(pparams, model_cfg, shape, d)
+        st, m, r = reset_batch(sc, env, routes.to(d),
+                               draws=to_device(reset, d),
+                               gnss_noise=gnss.to(d))
+        ros.append(collect_rollout(
+            sc, env, net, st, m, r, None, steps, True,
+            action_noise=noise.to(d),
+            env_draws=[to_device(e, d) for e in env_draws])[3])
+    roll_err = max(max_abs_diff(a, b) for a, b in (
+        (ros[0].obs, ros[1].obs), (ros[0].values, ros[1].values),
+        (ros[0].logp, ros[1].logp)))
+    ro = ros[1]
+    returns = compute_returns(ro.gail_rewards, ro.env_rewards, ro.values,
+                              ro.masks, tcfg.gamma, tcfg.gae_lambda,
+                              gail_coef=0.0, env_coef=1.0)
+    outs = []
+    for d in (scene.device, cpu):
+        sc = cpu_scene if d == cpu else cpu_scene.to(d)
+        net = policy_from_flax(pparams, model_cfg, shape, d)
+        opt = ppo_mod.make_policy_optimizer(tcfg)
+        ro_d = dataclasses.replace(ro, render=map_state(
+            lambda a: a.to(d), ro.render), **{
+            f.name: getattr(ro, f.name).to(d) for f in dataclasses.fields(ro)
+            if f.name != "render"})
+        _, aux = ppo_mod.ppo_update(
+            sc, env, tcfg, net, opt, opt.init(list(net.parameters())), ro_d,
+            returns.to(d), None, torch.zeros((), device=d), None,
+            perms=perms.to(d))
+        outs.append((aux, net.state_dict()))
+    (gm, gsd), (cm, csd) = outs
+    worst_rel = check_losses("state ppo_update", gm, cm)
+    worst_param = max(max_abs_diff(v, csd[k]) for k, v in gsd.items())
+    print(f"  card vs CPU state obs ({ROLL_ENVS} envs, reference scene): "
+          f"max |d| {obs_err:.3e} (limit {STATE_OBS_ATOL}); whole state "
+          f"update (smoke preset, {n} envs x {steps} steps, float32): "
+          f"{len(whole[1][0])} metrics, worst relative difference "
+          f"{whole_rel:.3e}, max |dparam| {whole_param:.3e} (not held); "
+          f"its rollout: max |d| of obs, values, logp {roll_err:.3e}; "
+          f"ppo_update from one rollout: {len(cm)} losses, worst relative "
+          f"difference {worst_rel:.3e}, max |dparam| {worst_param:.3e} "
+          f"(limit {PARAM_ATOL})", flush=True)
+    if (obs_err > STATE_OBS_ATOL or roll_err > 1e-6
+            or worst_param > PARAM_ATOL):
+        raise AssertionError("card and CPU disagree on the state path")
+
+
+def adversaries(graph, routes):
+    """Per route, one scripted adversary (``tests/test_scenario_actors.py``
+    's): a 26-point side street from 25 m right of a route point onto
+    that point, driven at 6 m/s, where it parks across the ego lane. The
+    point is the first at least ``SA_AHEAD_M`` along the route that ends
+    ``SA_STRAIGHT_M`` of straight road (headings within 1 degree), so that
+    the ego meets the adversary ahead of it and not inside a turn."""
+    out = {}
+    for r, rd in enumerate(routes):
+        d = trace_route(graph, rd.waypoints)
+        i = int(np.searchsorted(d.s, SA_AHEAD_M))
+        while True:
+            back = d.s[i] - d.s[:i + 1] <= SA_STRAIGHT_M
+            turn = np.angle(np.exp(1j * (d.yaw[:i + 1][back] - d.yaw[i])))
+            if np.abs(turn).max() < np.radians(1.0):
+                break
+            i += 1
+        yaw = float(d.yaw[i])
+        right = np.array([-np.sin(yaw), np.cos(yaw)])
+        out[r] = [(d.xy[i] + np.linspace(25.0, 0.0, 26)[:, None] * right,
+                   6.0)]
+    return out
+
+
+def scenario_expert(scene, cfg: EnvConfig, dev):
+    """(c) The compliant expert (``obey_signals=True``) on every route of
+    the scenario scene for at most ``SA_EXPERT_STEPS`` steps, one env per
+    route, over each env's first episode: it stops once every env has
+    ended it or has come within ``SA_GAP`` m of its adversary
+    ``SA_HOLD`` steps before. Raises on a vehicle collision, an env that
+    never came within ``SA_GAP`` m, or slots that did not park."""
+    n = scene.n_routes
+    K = cfg.n_npc_vehicles
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    st, _, _ = reset_batch(scene, cfg, torch.arange(n, device=dev), gen)
+    parked = st.traffic.veh.xy[:, K + 1:]
+    if not (bool((parked.abs() > 1e5).all())
+            and bool((st.traffic.veh_target_speed[:, K + 1:] == 0).all())):
+        raise AssertionError("the spare scenario slots are not parked")
+    ap = make_autopilot((n,), dev)
+    ended = torch.zeros(n, dtype=torch.bool, device=dev)
+    hit = torch.zeros_like(ended)
+    gap = torch.full((n,), 1e9, device=dev)
+    near_at = torch.full((n,), -1, dtype=torch.int64, device=dev)
+    t0 = time.time()
+    for t in range(SA_EXPERT_STEPS):
+        d = torch.linalg.norm(st.traffic.veh.xy[:, K] - st.ego.xy, dim=-1)
+        gap = torch.where(ended, gap, torch.minimum(gap, d))
+        near_at = torch.where((near_at < 0) & (gap < SA_GAP), t, near_at)
+        ap, act = autopilot_act(scene, ap, st, TARGET_SPEED, True)
+        st, out = step_batch(scene, cfg, st, act, gen)
+        ap = reset_autopilot_where(out.done, ap)
+        hit |= ~ended & (out.info["n_collisions_vehicle"] > 0)
+        ended |= out.done
+        if bool((ended | ((near_at >= 0) & (t - near_at >= SA_HOLD))).all()):
+            break
+    steps = t + 1
+    dt = synced_s(t0)
+    print(f"  scenario expert (obey_signals, {n} routes, {K} + "
+          f"{cfg.n_scenario_actors} scenario slots, 1 live per route): "
+          f"{steps} steps at {dt / steps * 1e3:.3f} ms per step; vehicle "
+          f"collisions {int(hit.sum())}; least gap to the adversary per "
+          f"route {[round(float(g), 2) for g in gap]} m; episodes ended "
+          f"{int(ended.sum())}", flush=True)
+    if bool(hit.any()) or not bool((gap < SA_GAP).all()):
+        raise AssertionError("the expert hit an adversary or never came "
+                             f"within {SA_GAP} m of one")
+
+
+def scenario_path(net6, env6_cfg: EnvConfig, dev):
+    """(c) ``leaderboard_suite(scenario_actors=...)`` on the card with one
+    adversary per route and ``SA_SLOTS`` scenario slots (2 parked): the
+    expert (``scenario_expert``), then the bev6 policy for
+    ``SUITE_STEPS`` steps (B2 once per step, 1 + ``SA_SLOTS`` vehicle
+    boxes); (d) B2 at ``ROLL_ENVS`` envs with 20 NPC vehicles, the
+    scenario slots and 50 walkers against its plain version at 0 values,
+    timed, with its shared memory. Every launch count is set to 0 just
+    before the suite and read after the policy's run. Returns (B2
+    launches, max abs difference, times)."""
+    for lib in (bev_cuda.LIB, bev6_cuda.LIB):
+        lib.launches = 0
+    t = time.time()
+    graph = make_grid_town(nx=4, ny=4, block=100.0, seed=2021)
+    actors = adversaries(graph, generate_routes(
+        graph, n_routes=10, min_length=400.0, seed=2021))
+    scene, cfg, _ = leaderboard_suite(scenario_actors=actors, device=dev)
+    if cfg.n_scenario_actors != 1:
+        raise AssertionError("one scenario actor per route expected")
+    cfg = dataclasses.replace(cfg, train=False, obs_mode="state",
+                              n_scenario_actors=SA_SLOTS)
+    print(f"  leaderboard_suite(scenario_actors=...): {scene.n_routes} "
+          f"routes, patrol rows {scene.patrol_xy.shape[0]} (the adversaries "
+          f"last), built in {synced_s(t):.3f} s", flush=True)
+    scenario_expert(scene, cfg, dev)
+    cfg6 = dataclasses.replace(cfg, obs_mode="bev6",
+                               max_time=SUITE_STEPS * 0.1)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    t0 = time.time()
+    latched, steps = run_latched(
+        scene, cfg6, torch.arange(scene.n_routes, device=dev),
+        benchmark_policy.LATCH_KEYS, SUITE_STEPS, gen, net=net6)
+    dt = synced_s(t0)
+    b2 = bev6_cuda.LIB.launches
+    if b2 != steps or bev_cuda.LIB.launches:
+        raise AssertionError(f"scenario bev6 policy: {b2} B2 launches for "
+                             f"{steps} steps")
+    print(f"  scenario bev6 policy ({scene.n_routes} routes, "
+          f"{1 + SA_SLOTS} vehicle boxes per env): {steps} steps at "
+          f"{dt / steps * 1e3:.3f} ms per step, B2 launches {b2}, "
+          f"collisions {int(latched['collision'].sum())}", flush=True)
+
+    # (d) B2 with 20 NPCs + the scenario slots (1 live, 2 parked) + 50
+    cfg_d = dataclasses.replace(env6_cfg, n_scenario_actors=SA_SLOTS)
+    k = cfg_d.n_npc_vehicles + SA_SLOTS
+    print(f"  bev6_raster shared memory per block at {k} vehicles + "
+          f"{cfg_d.n_npc_walkers} walkers: "
+          f"{bev6_cuda.shared_bytes(scene, k, cfg_d.n_npc_walkers)} bytes",
+          flush=True)
+    ren = bev6_states(scene, cfg_d, ROLL_ENVS, SEED + 7)
+    sa = ren.npc_pose[:, cfg_d.n_npc_vehicles:, :2]
+    if not (bool((sa[:, 1:].abs() > 1e5).all())
+            and bool((sa[:, 0].abs() < 1e4).all())):
+        raise AssertionError("the render states lack a live and two "
+                             "parked scenario slots")
+    err = check_kernel6(scene, cfg_d, ren)
+    inp = bev6_plain.bev6_inputs(scene, cfg_d, ren)
+    pro = bev6_cuda.bev6_prologue(scene, cfg_d, ren)
+    err_t, times = time_kernel(
+        "bev6_raster scenario", scene, cfg_d, ren, inp,
+        bev_tiles.kernel_tables(scene, ren, inp), pro,
+        lambda: bev6_cuda.render_bev6_cuda(scene, cfg_d, ren, *pro),
+        lambda: bev6_cuda.render_bev6_cuda_batch(scene, cfg_d, ren),
+        lambda: bev6_plain.render_bev6_plain(cfg_d, inp, scene.bnd_dmax))
+    return b2, max(err, err_t), times
+
+
+def sat_margins(scene, xy: np.ndarray, yaw: np.ndarray) -> np.ndarray:
+    """(N,) float64 separating-axis margin of each ego pose against the
+    scene's obstacles (the least over obstacles of the largest gap over
+    the 4 axes): > 0 apart, < 0 overlapping."""
+    p = scene.ob_pose.cpu().numpy().astype(np.float64)
+    ext = scene.ob_extent.cpu().numpy().astype(np.float64)
+    he = np.array([DEFAULT_VEHICLE.half_length, DEFAULT_VEHICLE.half_width])
+
+    def axes(a):
+        c, s = np.cos(a), np.sin(a)
+        return np.stack([np.stack([c, s], -1), np.stack([-s, c], -1)], -2)
+
+    ego_ax, ob_ax = axes(yaw.astype(np.float64)), axes(p[:, 2])
+    n, o = len(yaw), len(p)
+    all_ax = np.concatenate([np.broadcast_to(ego_ax[:, None], (n, o, 2, 2)),
+                             np.broadcast_to(ob_ax[None], (n, o, 2, 2))], 2)
+    d = p[None, :, :2] - xy.astype(np.float64)[:, None]
+    proj = np.abs(np.einsum("noac,noc->noa", all_ax, d))
+    r_ego = np.abs(np.einsum("noac,nbc->noab", all_ax, ego_ax)) @ he
+    r_ob = np.einsum("noab,ob->noa", np.abs(np.einsum(
+        "noac,obc->noab", all_ax, ob_ax)), ext)
+    return (proj - r_ego - r_ob).max(-1).min(-1)
+
+
+def obstacle_path(dev):
+    """(e) The reference scene with ``grid_building_obstacles(4, 4, 100)``
+    (9 buildings): a hard right turn at throttle 0.8 on ``ROLL_ENVS``
+    envs for ``OB_STEPS`` steps (every env must score a layout collision
+    with its first episode's penalty <= 65, as in
+    ``tests/test_obstacles.py``; the car leaves the road, 10.5 m short of
+    the buildings, before it can reach one, so the count of envs in
+    which the obstacle test fired is printed, not held), the
+    expert on every route for ``OB_EXPERT_STEPS`` steps (none), then card
+    vs CPU: ``obstacle_collision`` on ``OB_POSES`` random poses away from
+    contact (equal booleans) and the three cameras with the buildings in
+    view (within 1 level)."""
+    t = time.time()
+    graph = make_grid_town(nx=4, ny=4, block=100.0, seed=2021)
+    routes = generate_routes(graph, n_routes=10, min_length=400.0,
+                             seed=2021)
+    cpu_scene = build_scene(graph, routes, obstacles=grid_building_obstacles(
+        nx=4, ny=4, block=100.0))
+    scene = cpu_scene.to(dev)
+    print(f"  obstacle scene: {scene.ob_n} buildings, built in "
+          f"{synced_s(t):.3f} s", flush=True)
+    if scene.ob_n != 9:
+        raise AssertionError(f"{scene.ob_n} buildings, 9 expected")
+    cfg = EnvConfig(train=False, obs_mode="state")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    n = ROLL_ENVS
+    st, _, _ = reset_batch(scene, cfg, torch.arange(n, device=dev)
+                           % scene.n_routes, gen)
+    action = torch.tensor([[0.55, 0.8]], device=dev).expand(n, 2)
+    layout = torch.zeros(n, dtype=torch.bool, device=dev)
+    ob_hit, ended = torch.zeros_like(layout), torch.zeros_like(layout)
+    penalty = torch.zeros(n, device=dev)
+    t0 = time.time()
+    for t in range(OB_STEPS):
+        st, out = step_batch(scene, cfg, st, action, gen)
+        live = ~ended
+        ob_hit |= live & obstacle_collision(scene, DEFAULT_VEHICLE, st.ego)
+        layout |= live & (out.info["n_collisions_layout"] > 0)
+        penalty = torch.where(live, out.info["score_penalty"], penalty)
+        ended |= out.done
+        if bool(ended.all()):
+            break
+    steps = t + 1
+    dt = synced_s(t0)
+    print(f"  hard right at throttle 0.8 ({n} envs, every first episode "
+          f"ended after {steps} steps): {dt / steps * 1e3:.3f} ms per "
+          f"step; layout collisions in "
+          f"{int(layout.sum())} envs, the obstacle test fired in "
+          f"{int(ob_hit.sum())}; worst first-episode penalty "
+          f"{float(penalty.max()):.3f} (x100)", flush=True)
+    if not bool(layout.all()) or float(penalty.max()) > 65.0 + 1e-3:
+        raise AssertionError("the hard right turn did not score a layout "
+                             "collision with penalty <= 65 in every env")
+
+    k = scene.n_routes
+    st, _, _ = reset_batch(scene, cfg, torch.arange(k, device=dev), gen)
+    ap = make_autopilot((k,), dev)
+    clean = torch.zeros(k, dtype=torch.bool, device=dev)
+    t0 = time.time()
+    for _ in range(OB_EXPERT_STEPS):
+        ap, act = autopilot_act(scene, ap, st)
+        st, out = step_batch(scene, cfg, st, act, gen)
+        ap = reset_autopilot_where(out.done, ap)
+        clean |= out.info["n_collisions_layout"] > 0
+    dt = synced_s(t0)
+    print(f"  expert on the obstacle scene ({k} routes x {OB_EXPERT_STEPS} "
+          f"steps): {dt / OB_EXPERT_STEPS * 1e3:.3f} ms per step; layout "
+          f"collisions {int(clean.sum())}", flush=True)
+    if bool(clean.any()):
+        raise AssertionError("the expert hit a building on its route")
+
+    rng = np.random.default_rng(SEED)
+    half = float(cpu_scene.ob_extent[0, 0])
+    xy = (rng.choice([50.0, 150.0, 250.0], (OB_POSES, 2))
+          + rng.uniform(-1.0, 1.0, (OB_POSES, 2)) * (half + 12.0)
+          ).astype(np.float32)
+    yaw = rng.uniform(-np.pi, np.pi, OB_POSES).astype(np.float32)
+    away = np.abs(sat_margins(cpu_scene, xy, yaw)) > 1e-3
+    hits = []
+    for sc in (scene, cpu_scene):
+        d = sc.device
+        ego = VehicleState(xy=torch.from_numpy(xy).to(d),
+                           yaw=torch.from_numpy(yaw).to(d),
+                           speed=torch.zeros(OB_POSES, device=d))
+        hits.append(obstacle_collision(sc, DEFAULT_VEHICLE, ego).cpu()
+                    .numpy())
+    n_diff = int((hits[0][away] != hits[1][away]).sum())
+    bare = dataclasses.replace(cpu_scene, ob_n=0)
+    level = drawn = 0
+    for i, off in enumerate(camera.CAMERAS.values()):
+        r, h = i, 40 + 30 * i
+        xy_c = cpu_scene.route_xy[r, h][None]
+        yaw_c = cpu_scene.route_yaw[r, h][None]
+        got = camera.render_camera(scene, xy_c.to(dev), yaw_c.to(dev), off)
+        want = camera.render_camera(cpu_scene, xy_c, yaw_c, off)
+        level = max(level, int((got.cpu().int() - want.int()).abs().max()))
+        drawn += int((want != camera.render_camera(bare, xy_c, yaw_c, off))
+                     .any(-1).sum())
+    print(f"  card vs CPU obstacles: SAT on {OB_POSES} poses "
+          f"({int(away.sum())} away from contact, {int(hits[1].sum())} "
+          f"hits): {n_diff} differ; {len(camera.CAMERAS)} camera frames, "
+          f"{drawn} pixels of buildings: max |d| {level} level", flush=True)
+    if n_diff or level > 1 or not drawn:
+        raise AssertionError("card and CPU disagree on the obstacles")
+
+
+def options_path(scene, model_cfg: ModelConfig, env6_cfg: EnvConfig,
+                 preset, dev):
+    """The options of ported modules: (a) the state-vector path, (b) its
+    card-vs-CPU checks, (c, d) scenario actors and B2 at their slots, (e)
+    static obstacles. Returns (B2 launches of (c), B2's max abs
+    difference and times at the scenario slots)."""
+    t = time.time()
+    net = state_updates(scene, model_cfg, preset["train"], dev)
+    state_demos_and_eval(scene, net, preset["train"], dev)
+    progress("options (a) state path", t)
+    t = time.time()
+    state_card_vs_cpu(scene, SEED + 8)
+    progress("options (b) state card vs CPU", t)
+    t = time.time()
+    w = env6_cfg.bev_width
+    net6 = init_policy(model_cfg, (6, w, w), seed=SEED, device=dev)
+    b2, err, times = scenario_path(net6, env6_cfg, dev)
+    progress("options (c, d) scenario actors, B2", t)
+    t = time.time()
+    obstacle_path(dev)
+    progress("options (e) obstacles", t)
+    return b2, err, times
+
+
 def kernel_line(name, source, replaces, launches, err, times):
     k_ms, p_ms, b_ms, b_by = times
     return {
@@ -1945,6 +2485,13 @@ def main() -> int:
     launches6 += b2
     err6 = max(err6, err_dense)
     progress("suites", t)
+
+    # --- the options: state obs, scenario actors (B2), obstacles ---
+    t = time.time()
+    b2, err_sa, _ = options_path(scene, model_cfg, env6_cfg, preset, dev)
+    launches6 += b2
+    err6 = max(err6, err_sa)
+    progress("options", t)
 
     torch.cuda.synchronize()
     print(json.dumps({"kernels": [

@@ -1,7 +1,8 @@
 """Rollout and expert-demo buffers: port of
 ``gail_carla_tpu/algo/buffers.py``.
 
-Two observation policies, both on the device:
+Two observation policies, both on the device (state-vector observations,
+``obs_mode="state"``, are stored as float32 (T, N, D) rows instead):
 
 - ``obs`` stored BIT-PACKED, one uint8 per pixel (T, N, W, W): rendered
   once while acting, unpacked per minibatch (an expert buffer read from
@@ -26,6 +27,9 @@ import torch
 from gail_carla_tpu_torch.config import EnvConfig
 from gail_carla_tpu_torch.ops.bev import INV_255, render_bev_batch_auto
 from gail_carla_tpu_torch.ops.bev6 import render_bev6_batch_auto
+from gail_carla_tpu_torch.ops.state_obs import (
+    STATE_OBS_DIM, state_observation_batch,
+)
 
 # rows rendered per pass when an expert buffer materialises its obs
 EXPERT_CHUNK = 512
@@ -38,7 +42,8 @@ class Rollout:
 
     render: object               # RenderState, leaves (T+1, N, ...)
     metrics: torch.Tensor        # (T+1, N, 4)
-    obs: Optional[torch.Tensor]  # (T+1, N, W, W) packed uint8, or None
+    obs: Optional[torch.Tensor]  # (T+1, N, W, W) packed uint8,
+    #                              (T+1, N, D) float32 state, or None
     actions: torch.Tensor        # (T, N, 2)
     logp: torch.Tensor           # (T, N)
     values: torch.Tensor         # (T+1, N)
@@ -62,6 +67,7 @@ class ExpertBuffer:
     render: object               # RenderState, leaves (M, ...)
     metrics: torch.Tensor        # (M, 4)
     obs: Optional[torch.Tensor]  # (M, W, W) packed / (M, C, W, W) u8
+    #                              / (M, D) float32 state
     actions: torch.Tensor        # (M, 2)
 
     @property
@@ -75,16 +81,15 @@ def map_state(fn: Callable, state):
                           for f in dataclasses.fields(state)})
 
 
-def obs_batch(scene, cfg: EnvConfig, render_state):
-    """The policy observation of a render-state batch: the 3-channel BEV
-    (``obs_mode="bev"``) or the 6-channel one (``"bev6"``)."""
-    if cfg.obs_mode == "bev":
-        return render_bev_batch_auto(scene, cfg, render_state)
+def obs_batch(scene, cfg: EnvConfig, render_state, metrics):
+    """The policy observation of a render-state batch and its metrics: the
+    3-channel BEV (``obs_mode="bev"``), the 6-channel one (``"bev6"``) or
+    the state vector (``"state"``, which reads the metrics)."""
+    if cfg.obs_mode == "state":
+        return state_observation_batch(scene, cfg, render_state, metrics)
     if cfg.obs_mode == "bev6":
         return render_bev6_batch_auto(scene, cfg, render_state)
-    raise NotImplementedError(
-        f"obs_mode {cfg.obs_mode!r} is not ported yet (only 'bev', 'bev6')"
-    )
+    return render_bev_batch_auto(scene, cfg, render_state)
 
 
 def _u8(mask: torch.Tensor) -> torch.Tensor:
@@ -135,36 +140,41 @@ def unpack_bev_obs(cfg: EnvConfig, packed: torch.Tensor) -> torch.Tensor:
 
 
 def store_encode(cfg: EnvConfig, obs: torch.Tensor) -> torch.Tensor:
-    """Encode a float obs batch for in-buffer storage: bit-packed (the BEV
-    modes are the only observations ported)."""
+    """Encode a float obs batch for in-buffer storage: bit-packed for the
+    BEV modes, the float32 vectors themselves for ``"state"``."""
+    if cfg.obs_mode == "state":
+        return obs
     return pack_bev_obs(cfg, obs)
 
 
 def _decode(cfg: EnvConfig, obs_stored: torch.Tensor) -> torch.Tensor:
-    """Float obs of stored rows: (B, W, W) bit-packed, or (B, C, W, W)
+    """Float obs of stored rows: (B, W, W) bit-packed, (B, C, W, W)
     per-channel uint8 planes (expert buffers read from a PNG tree,
-    ``tools/expert_dataset.py``). The planes' ``/ 255.0`` in the JAX
-    source is compiled by XLA into a multiply by the float32 reciprocal,
-    which is what this computes."""
+    ``tools/expert_dataset.py``), or float state vectors, which pass
+    through. The planes' ``/ 255.0`` in the JAX source is compiled by XLA
+    into a multiply by the float32 reciprocal, which is what this
+    computes."""
     if obs_stored.dtype != torch.uint8:
-        raise ValueError(f"stored obs are uint8, got {obs_stored.dtype}")
+        return obs_stored
     if obs_stored.dim() == 4:
         return obs_stored.to(torch.float32) * INV_255
     return unpack_bev_obs(cfg, obs_stored)
 
 
 def fetch_rollout_obs(scene, cfg: EnvConfig, rollout: Rollout, t_idx, n_idx):
-    """(B, C, W, W) float obs for flat minibatch indices (t, n)."""
+    """(B, C, W, W) or (B, D) float obs for flat minibatch indices (t, n)."""
     if rollout.obs is not None:
         return _decode(cfg, rollout.obs[t_idx, n_idx])
     return obs_batch(scene, cfg,
-                     map_state(lambda a: a[t_idx, n_idx], rollout.render))
+                     map_state(lambda a: a[t_idx, n_idx], rollout.render),
+                     rollout.metrics[t_idx, n_idx])
 
 
 def fetch_expert_obs(scene, cfg: EnvConfig, buf: ExpertBuffer, idx):
     if buf.obs is not None:
         return _decode(cfg, buf.obs[idx])
-    return obs_batch(scene, cfg, map_state(lambda a: a[idx], buf.render))
+    return obs_batch(scene, cfg, map_state(lambda a: a[idx], buf.render),
+                     buf.metrics[idx])
 
 
 def build_expert_buffer(
@@ -178,7 +188,7 @@ def build_expert_buffer(
     """Compact a DemoBatch to its valid steps (once, at startup). Pads by
     repeating valid rows so the result has the requested size. The packed
     obs are rendered ``EXPERT_CHUNK`` rows at a time into one buffer on the
-    demos' device."""
+    demos' device (state vectors: the float32 (size, D) rows)."""
     render, metrics, actions, valid = demos.flatten()
     idx = np.nonzero(valid.cpu().numpy())[0]
     if len(idx) == 0:
@@ -195,11 +205,15 @@ def build_expert_buffer(
     obs = None
     if materialize_obs:
         w = cfg.bev_width
-        obs = torch.empty((size, w, w), dtype=torch.uint8,
-                          device=actions.device)
+        if cfg.obs_mode == "state":
+            obs = torch.empty((size, STATE_OBS_DIM), device=actions.device)
+        else:
+            obs = torch.empty((size, w, w), dtype=torch.uint8,
+                              device=actions.device)
         for lo in range(0, size, EXPERT_CHUNK):
             chunk = slice(lo, lo + EXPERT_CHUNK)
             obs[chunk] = store_encode(cfg, obs_batch(
-                scene, cfg, map_state(lambda a: a[chunk], render_sel)))
+                scene, cfg, map_state(lambda a: a[chunk], render_sel),
+                metrics_sel[chunk]))
     return ExpertBuffer(render=render_sel, metrics=metrics_sel, obs=obs,
                         actions=actions[sel])

@@ -79,7 +79,7 @@ def run_latched(
             ap, action = autopilot_act(scene, ap, st, TARGET_SPEED,
                                        obey_signals)
         else:
-            obs = obs_batch(scene, cfg, render)
+            obs = obs_batch(scene, cfg, render, metrics)
             _, action, _ = policy_mod.act(net, obs, metrics,
                                           deterministic=True)
         draws = {} if env_draws is None else env_draws[t]._asdict()

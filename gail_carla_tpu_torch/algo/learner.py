@@ -25,9 +25,12 @@ from gail_carla_tpu_torch.convert import (
     critic_from_flax, init_critic_flax_params, init_flax_params,
     policy_from_flax,
 )
-from gail_carla_tpu_torch.models.discriminator import DiscriminatorNet
+from gail_carla_tpu_torch.models.discriminator import (
+    STATE_OBS_ERROR, DiscriminatorNet,
+)
 from gail_carla_tpu_torch.models.policy import PolicyNet
 from gail_carla_tpu_torch.ops.gae import compute_returns
+from gail_carla_tpu_torch.ops.state_obs import STATE_OBS_DIM
 from gail_carla_tpu_torch.sim.env import (
     RenderState, ResetDraws, StepDraws, reset_batch,
 )
@@ -72,6 +75,8 @@ def _dummy_expert(env_cfg: EnvConfig, device) -> ExpertBuffer:
         return torch.zeros(shape, dtype=dtype, device=device)
 
     i32 = torch.int32
+    obs = (z(1, STATE_OBS_DIM) if env_cfg.obs_mode == "state"
+           else z(1, w, w, dtype=torch.uint8))
     return ExpertBuffer(
         render=RenderState(
             xy=z(1, 2), yaw=z(1), route_id=z(1, dtype=i32),
@@ -79,8 +84,7 @@ def _dummy_expert(env_cfg: EnvConfig, device) -> ExpertBuffer:
             stop_idx=z(1, dtype=i32) - 1, npc_pose=z(1, 0, 3),
             walker_pose=z(1, 0, 3),
         ),
-        metrics=z(1, 4), obs=z(1, w, w, dtype=torch.uint8),
-        actions=z(1, 2),
+        metrics=z(1, 4), obs=obs, actions=z(1, 2),
     )
 
 
@@ -89,7 +93,10 @@ class WDGAILLearner:
     ``tcfg.algo == "ppo"`` the critic phases are skipped and GAE runs on
     the env reward (no expert buffer needed). ``policy_params`` and
     ``disc_params`` (flax layout) give the initial weights; by default they
-    are drawn with numpy from ``tcfg.seed``."""
+    are drawn with numpy from ``tcfg.seed``. At ``obs_mode="state"`` only
+    ``algo="ppo"`` trains: the reference's critic cannot take state obs
+    (``models/discriminator.py::STATE_OBS_ERROR``), so ``"wdgail"``
+    raises here."""
 
     def __init__(
         self,
@@ -108,6 +115,8 @@ class WDGAILLearner:
         self.model_cfg = model_cfg
         self.tcfg = tcfg
         self.device = scene.device
+        if env_cfg.obs_mode == "state" and tcfg.algo != "ppo":
+            raise NotImplementedError(STATE_OBS_ERROR)
         if expert is None:
             if tcfg.algo != "ppo":
                 raise ValueError("WDGAIL needs an expert buffer")
@@ -116,9 +125,10 @@ class WDGAILLearner:
         self.expert_val = expert_val if expert_val is not None else expert
         self.store_obs = store_obs
 
-        c = 6 if env_cfg.obs_mode == "bev6" else 3
         w = env_cfg.bev_width
-        self.obs_shape = (c, w, w)
+        self.obs_shape = (
+            (STATE_OBS_DIM,) if env_cfg.obs_mode == "state"
+            else (6 if env_cfg.obs_mode == "bev6" else 3, w, w))
         self._policy_params0 = (
             policy_params if policy_params is not None
             else init_flax_params(model_cfg, self.obs_shape, tcfg.seed))

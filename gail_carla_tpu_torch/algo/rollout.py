@@ -2,11 +2,12 @@
 (``tools/learn.py:111-133``). The policy acts and the world steps on the
 device, one Python iteration per step in place of ``lax.scan``; each
 step's observation comes from the BEV renderer of ``cfg.obs_mode`` (a
-CUDA kernel on the card).
+CUDA kernel on the card) or, at ``"state"``, from the state vector.
 
 With ``store_obs=True`` (the learner's default) each step's observation
-and the bootstrap's are kept bit-packed (``algo/buffers.py``); with
-``store_obs=False`` minibatches re-render from the compact render states.
+and the bootstrap's are kept bit-packed (``algo/buffers.py``; state
+vectors as float32); with ``store_obs=False`` minibatches re-derive them
+from the compact render states and metrics.
 """
 from __future__ import annotations
 
@@ -52,7 +53,7 @@ def collect_rollout(
                           "reward", "done", "ep_reward", "ep_length",
                           "completed", "obs")}
     for t in range(n_steps):
-        obs = obs_batch(scene, cfg, render)
+        obs = obs_batch(scene, cfg, render, metrics)
         value, action, logp = policy_mod.act(
             net, obs, metrics, generator,
             noise=None if action_noise is None else action_noise[t],
@@ -74,7 +75,7 @@ def collect_rollout(
         st, metrics, render = st2, out.metrics, out.render
 
     # bootstrap value for the final obs (tools/learn.py:137-139)
-    obs_f = obs_batch(scene, cfg, render)
+    obs_f = obs_batch(scene, cfg, render, metrics)
     value_f, _, _ = policy_mod.act(net, obs_f, metrics, deterministic=True)
     obs_all = None
     if store_obs:

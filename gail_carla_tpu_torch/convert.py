@@ -4,10 +4,12 @@ JAX.
 
 Flax keeps ``{"params": {"ObsEncoder_0": {"Conv_i": ...},
 "MetricsEncoder_0": {"Embed_0": ...}, "Dense_0".."Dense_<k>": ...}}`` as
-nested dicts of arrays. Conv kernels are HWIO and become OIHW; Dense
-kernels are (in, out) and become ``nn.Linear`` weights (out, in).
-``Dense_0`` consumes the NHWC flatten of the conv features, which the
-port's ``ObsEncoder`` reproduces (the critic's also takes the action).
+nested dicts of arrays; for a (D,) state-vector obs ``ObsEncoder_0``
+holds ``Dense_0`` and ``Dense_1`` instead of the convs. Conv kernels are
+HWIO and become OIHW; Dense kernels are (in, out) and become
+``nn.Linear`` weights (out, in). The top ``Dense_0`` consumes the NHWC
+flatten of the conv features, which the port's ``ObsEncoder`` reproduces
+(the critic's also takes the action).
 """
 from __future__ import annotations
 
@@ -20,7 +22,9 @@ from gail_carla_tpu_torch.config import ModelConfig
 from gail_carla_tpu_torch.device import resolve_device
 from gail_carla_tpu_torch.models.discriminator import DiscriminatorNet
 from gail_carla_tpu_torch.models.policy import PolicyNet
-from gail_carla_tpu_torch.models.processors import conv_out_width
+from gail_carla_tpu_torch.models.processors import (
+    STATE_HIDDEN, conv_out_width,
+)
 from gail_carla_tpu_torch.utils.checkpoint import save_checkpoint
 
 # the flax Dense_i layers, in order, as the port's modules name them
@@ -36,19 +40,26 @@ def _state_dict(params: Mapping, cfg: ModelConfig, dense_names) -> Dict:
     def t(a):
         return torch.from_numpy(np.array(a, dtype=np.float32))
 
+    def linear(prefix, dense):
+        sd[f"{prefix}.weight"] = t(dense["kernel"]).T.contiguous()
+        sd[f"{prefix}.bias"] = t(dense["bias"])
+
     sd = {}
-    for i in range(len(cfg.conv_channels)):
-        conv = p["ObsEncoder_0"][f"Conv_{i}"]
-        sd[f"obs_enc.convs.{i}.weight"] = t(conv["kernel"]).permute(
-            3, 2, 0, 1).contiguous()
-        sd[f"obs_enc.convs.{i}.bias"] = t(conv["bias"])
+    enc = p["ObsEncoder_0"]
+    if "Dense_0" in enc:                 # the state-vector encoder
+        for i in range(2):
+            linear(f"obs_enc.dense.{i}", enc[f"Dense_{i}"])
+    else:
+        for i in range(len(cfg.conv_channels)):
+            conv = enc[f"Conv_{i}"]
+            sd[f"obs_enc.convs.{i}.weight"] = t(conv["kernel"]).permute(
+                3, 2, 0, 1).contiguous()
+            sd[f"obs_enc.convs.{i}.bias"] = t(conv["bias"])
     sd["met_enc.embed.weight"] = t(
         p["MetricsEncoder_0"]["Embed_0"]["embedding"]
     )
     for i, name in enumerate(dense_names):
-        dense = p[f"Dense_{i}"]
-        sd[f"{name}.weight"] = t(dense["kernel"]).T.contiguous()
-        sd[f"{name}.bias"] = t(dense["bias"])
+        linear(name, p[f"Dense_{i}"])
     return sd
 
 
@@ -90,29 +101,39 @@ def _init_params(cfg: ModelConfig, obs_shape, seed: int, extra_in: int,
     """Flax-layout params of the encoders and the Dense layers of widths
     ``dense_out``, drawn with numpy from ``seed`` with flax's default
     initialisers (lecun normal kernels, zero biases, embeddings of
-    variance 1/features). ``Dense_0`` takes the NHWC flatten of the conv
-    features, the metrics features and ``extra_in`` more inputs."""
+    variance 1/features). ``Dense_0`` takes the encoder's features (the
+    NHWC flatten of the conv features, or the state encoder's 256), the
+    metrics features and ``extra_in`` more inputs."""
     rng = np.random.default_rng(seed)
-    c, _, w = obs_shape
-    p = {"ObsEncoder_0": {}}
-    cin = c
-    for i, ch in enumerate(cfg.conv_channels):
-        p["ObsEncoder_0"][f"Conv_{i}"] = {
-            "kernel": _lecun_normal(rng, (4, 4, cin, ch), 16 * cin),
-            "bias": np.zeros((ch,), np.float32),
-        }
-        cin = ch
+
+    def dense(d_in, d_out):
+        return {"kernel": _lecun_normal(rng, (d_in, d_out), d_in),
+                "bias": np.zeros((d_out,), np.float32)}
+
+    enc = {}
+    if len(obs_shape) == 1:              # the state-vector encoder
+        dims = [obs_shape[0], STATE_HIDDEN, STATE_HIDDEN]
+        for i in range(2):
+            enc[f"Dense_{i}"] = dense(dims[i], dims[i + 1])
+        feat = STATE_HIDDEN
+    else:
+        c, _, w = obs_shape
+        cin = c
+        for i, ch in enumerate(cfg.conv_channels):
+            enc[f"Conv_{i}"] = {
+                "kernel": _lecun_normal(rng, (4, 4, cin, ch), 16 * cin),
+                "bias": np.zeros((ch,), np.float32),
+            }
+            cin = ch
+        side = conv_out_width(w, len(cfg.conv_channels))
+        feat = side * side * cfg.conv_channels[-1]
+    p = {"ObsEncoder_0": enc}
     p["MetricsEncoder_0"] = {"Embed_0": {"embedding": (
         rng.standard_normal((cfg.max_road_options, cfg.cmd_embed_dim))
         / np.sqrt(cfg.cmd_embed_dim)).astype(np.float32)}}
-    side = conv_out_width(w, len(cfg.conv_channels))
-    dims = [side * side * cfg.conv_channels[-1] + 5 + cfg.cmd_embed_dim
-            + extra_in] + list(dense_out)
+    dims = [feat + 5 + cfg.cmd_embed_dim + extra_in] + list(dense_out)
     for i in range(len(dense_out)):
-        p[f"Dense_{i}"] = {
-            "kernel": _lecun_normal(rng, (dims[i], dims[i + 1]), dims[i]),
-            "bias": np.zeros((dims[i + 1],), np.float32),
-        }
+        p[f"Dense_{i}"] = dense(dims[i], dims[i + 1])
     return {"params": p}
 
 

@@ -92,16 +92,23 @@ def leaderboard_suite(
     """leaderboard_env.py: LeaderBoard routes on the procedural grid town,
     zombie counts zeroed (leaderboard_env.py:34-49). ``town`` and
     ``route_file`` (a reference town's route pack) wait on the town
-    importers; ``scenario_actors`` (scripted per-route adversaries) is not
-    ported yet."""
+    importers.
+
+    ``scenario_actors`` maps route_id -> [(polyline_xy, speed), ...],
+    scripted per-route adversaries (the actors.json counterpart the
+    reference's ScenarioActorHandler ticks); they fill the last
+    ``n_scenario_actors = scene.sa_max`` vehicle slots. Generated scenes
+    only, as in the JAX suite."""
+    if town is not None and scenario_actors is not None:
+        raise ValueError(
+            "scenario_actors are a task field for generated scenes")
     _no_town(town)
-    if scenario_actors is not None:
-        raise NotImplementedError("scenario actors are not ported yet")
     dev = resolve_device(device)
     graph = make_grid_town(nx=nx, ny=ny, block=block, seed=seed)
     routes = generate_routes(graph, n_routes=n_routes, min_length=400.0,
                              seed=seed)
-    scene = build_scene(graph, routes).to(dev)
+    scene = build_scene(graph, routes,
+                        scenario_actors=scenario_actors).to(dev)
     cfg = EnvConfig(
         train=True, terminal_mode="leaderboard",
         n_scenario_actors=int(scene.sa_max),

@@ -6,6 +6,8 @@ LeakyReLU(0.2) -> Linear(1).
 The mixup gradient penalty takes the gradient w.r.t. the image input only
 (the reference keeps ``grad(...)[0]``) on alpha-mixed expert/policy
 triples: penalty lambda * (||g||_2 - 1)^2, the norm without an epsilon.
+The reference cannot take the penalty on (B, D) state vectors
+(``STATE_OBS_ERROR``), and neither does the port.
 """
 from __future__ import annotations
 
@@ -16,8 +18,17 @@ import torch.nn.functional as F
 from torch import nn
 
 from gail_carla_tpu_torch.config import ModelConfig
-from gail_carla_tpu_torch.models.processors import (
-    MetricsEncoder, ObsEncoder, conv_out_width,
+from gail_carla_tpu_torch.models.processors import MetricsEncoder, ObsEncoder
+
+# The reference's penalty draws alpha as (B, 1, 1, 1)
+# (gail_carla_tpu/models/discriminator.py:57-58): on a (B, D) state obs
+# the mix broadcasts to (B, 1, B, D), and flax's critic then fails inside
+# disc_update; only algo="ppo" trains on state obs there.
+STATE_OBS_ERROR = (
+    "the WDGAIL critic does not train on obs_mode='state': the reference's "
+    "gradient penalty mixes a (B, D) state obs with a (B, 1, 1, 1) alpha "
+    "into a 4-D tensor its critic cannot take, so it fails; train state "
+    "obs with algo='ppo'"
 )
 
 
@@ -26,14 +37,9 @@ class DiscriminatorNet(nn.Module):
                  n_actions: int = 2):
         super().__init__()
         self.cfg = cfg
-        c, h, w = obs_shape
-        if h != w:
-            raise ValueError("the BEV observation is square")
-        self.obs_enc = ObsEncoder(cfg, c)
+        self.obs_enc = ObsEncoder(cfg, obs_shape)
         self.met_enc = MetricsEncoder(cfg)
-        side = conv_out_width(w, len(cfg.conv_channels))
-        d = (side * side * cfg.conv_channels[-1] + 5 + cfg.cmd_embed_dim
-             + n_actions)
+        d = self.obs_enc.out_dim + 5 + cfg.cmd_embed_dim + n_actions
         self.hidden = nn.Linear(d, cfg.disc_hidden)
         self.out = nn.Linear(cfg.disc_hidden, 1)
 
@@ -60,6 +66,8 @@ def grad_penalty(net: DiscriminatorNet, expert, policy,
     ``alpha`` is drawn from ``generator`` when not given."""
     e_obs, e_met, e_act = expert
     p_obs, p_met, p_act = policy
+    if e_obs.dim() == 2:
+        raise NotImplementedError(STATE_OBS_ERROR)
     if alpha is None:
         alpha = torch.rand((e_obs.shape[0], 1, 1, 1), generator=generator,
                            device=e_obs.device)

@@ -13,9 +13,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from gail_carla_tpu_torch.config import ModelConfig
-from gail_carla_tpu_torch.models.processors import (
-    MetricsEncoder, ObsEncoder, conv_out_width,
-)
+from gail_carla_tpu_torch.models.processors import MetricsEncoder, ObsEncoder
 
 LOG_2PI = 1.8378770664093453
 
@@ -25,13 +23,9 @@ class PolicyNet(nn.Module):
                  n_actions: int = 2):
         super().__init__()
         self.cfg = cfg
-        c, h, w = obs_shape
-        if h != w:
-            raise ValueError("the BEV observation is square")
-        self.obs_enc = ObsEncoder(cfg, c)
+        self.obs_enc = ObsEncoder(cfg, obs_shape)
         self.met_enc = MetricsEncoder(cfg)
-        side = conv_out_width(w, len(cfg.conv_channels))
-        d = side * side * cfg.conv_channels[-1] + 5 + cfg.cmd_embed_dim
+        d = self.obs_enc.out_dim + 5 + cfg.cmd_embed_dim
         body = []
         for _ in range(3):
             body.append(nn.Linear(d, cfg.hidden_size))

@@ -7,10 +7,11 @@ its result is a ``TorchScene`` with the field names of ``StaticScene``
 
 The map is stored as capsule segments bucketed into a spatial grid
 (scene/segments.py). ``build_scene`` takes precomputed dense routes
-(``dense=``, the endless suite's chained rows). Its options that only the
-town importers and scripted tasks use (ground-truth geometry, scenario
-actors, obstacles, sidewalk paths) are not ported: the procedural scene
-leaves those tables at their empty defaults.
+(``dense=``, the endless suite's chained rows), scripted scenario actors
+(``scenario_actors=``) and static obstacles (``obstacles=``). The options
+that only the town importers use (ground-truth geometry, sidewalk paths)
+are not ported: the procedural scene leaves those tables at their empty
+defaults.
 """
 from __future__ import annotations
 
@@ -144,6 +145,17 @@ def _pad_polyline_set(patrols, pad: int = 128):
     return patrol_xy, patrol_yaw, patrol_cmd, patrol_n
 
 
+def _polyline_with_yaw(xy: np.ndarray):
+    """(xy, yaw, cmd) of a polyline: each point's heading toward the next
+    (the last repeats), command 4 (LANEFOLLOW) throughout."""
+    xy = np.asarray(xy, np.float64).reshape(-1, 2)
+    d = np.diff(xy, axis=0)
+    yaw = np.arctan2(d[:, 1], d[:, 0])
+    yaw = np.concatenate([yaw, yaw[-1:]]) if len(yaw) else np.zeros(1)
+    cmd = np.full(len(xy), 4, np.int32)
+    return xy, yaw, cmd
+
+
 def _build_patrols(
     graph: LaneGraph,
     n_patrols: int,
@@ -189,10 +201,20 @@ def build_scene(
     cell_size: float = 32.0,
     n_patrols: int = 32,
     dense=None,
+    scenario_actors=None,
+    obstacles=None,
 ) -> TorchScene:
     """Compile a lane graph and its routes into a CPU ``TorchScene``.
     ``dense`` optionally supplies the routes' ``DenseRoute``s instead of
-    tracing ``route_defs`` through the graph."""
+    tracing ``route_defs`` through the graph.
+
+    ``scenario_actors`` maps route_id -> [(polyline_xy, target_speed),
+    ...], per-task scripted vehicles (scenario_actor_handler.py:6-50):
+    their polylines are appended to the patrol tables after the random
+    patrols, and ``sa_patrol``/``sa_speed`` say which rows each ego route
+    activates (``sim/traffic.py``). ``obstacles`` is a list of (x, y, yaw,
+    half_x, half_y) static OBBs (buildings, poles); hitting one scores a
+    layout collision (``sim/collisions.py::obstacle_collision``)."""
     if dense is None:
         dense = [trace_mod.trace_route(graph, r.waypoints)
                  for r in route_defs]
@@ -283,14 +305,30 @@ def build_scene(
     if len(spawn) == 0:
         spawn = np.zeros((1, 3), np.float32)
 
-    patrol_xy, patrol_yaw, patrol_cmd, patrol_n = _pad_polyline_set(
-        _build_patrols(graph, n_patrols)
+    polylines = _build_patrols(graph, n_patrols)
+    sa_max = max(
+        (len(v) for v in (scenario_actors or {}).values()), default=0
     )
-    sa_patrol = np.full((R, 1), -1, np.int32)
-    sa_speed = np.zeros((R, 1), np.float32)
-    ob_pose = np.zeros((1, 3), np.float32)
-    ob_pose[:, 0] = 1.0e6   # the empty obstacle slot lives far away
-    ob_extent = np.ones((1, 2), np.float32) * 0.01
+    R_total = len(route_defs)
+    sa_patrol = np.full((R_total, max(sa_max, 1)), -1, np.int32)
+    sa_speed = np.zeros((R_total, max(sa_max, 1)), np.float32)
+    for rid, actors in (scenario_actors or {}).items():
+        for j, (poly, speed) in enumerate(actors):
+            sa_patrol[rid, j] = len(polylines)
+            sa_speed[rid, j] = speed
+            polylines.append(_polyline_with_yaw(poly))
+    patrol_xy, patrol_yaw, patrol_cmd, patrol_n = _pad_polyline_set(
+        polylines
+    )
+
+    obs_list = list(obstacles or ())
+    O = max(len(obs_list), 1)
+    ob_pose = np.zeros((O, 3), np.float32)
+    ob_extent = np.ones((O, 2), np.float32) * 0.01
+    ob_pose[:, 0] = 1.0e6   # empty slots live far away
+    for i, (x, y, yaw, hx, hy) in enumerate(obs_list):
+        ob_pose[i] = (x, y, yaw)
+        ob_extent[i] = (hx, hy)
 
     t = torch.from_numpy
     cell_bnd_t, cell_bnd_n_t = t(cell_bnd), t(cell_bnd_n)
@@ -340,10 +378,10 @@ def build_scene(
         patrol_n=t(patrol_n),
         sa_patrol=t(sa_patrol),
         sa_speed=t(sa_speed),
-        sa_max=0,
+        sa_max=sa_max,
         ob_pose=t(ob_pose),
         ob_extent=t(ob_extent),
-        ob_n=0,
+        ob_n=len(obs_list),
     )
 
 

@@ -365,6 +365,35 @@ def make_grid_town(
     )
 
 
+def grid_building_obstacles(
+    nx: int = 4,
+    ny: int = 4,
+    block: float = 100.0,
+    lane_width: float = LANE_WIDTH,
+    lanes_per_direction: int = 1,
+    margin: float = 2.5,
+    junction_margin: float = 8.0,
+) -> List[Tuple[float, float, float, float, float]]:
+    """Building OBBs (x, y, yaw, half_x, half_y) filling each interior
+    block of the grid town, inset ``margin`` m from the road band and from
+    the junction box, whose turning arcs swing wider than the straight
+    lanes. These are the static actors the reference's collision sensor
+    can hit (criteria/collision.py:49-112): clipping a block corner scores
+    a layout collision while part of the car is still on the road."""
+    road_half = max(
+        lanes_per_direction * lane_width, junction_margin
+    ) + margin
+    half = block / 2.0 - road_half
+    out = []
+    if half <= 2.0:
+        return out
+    for i in range(nx - 1):
+        for j in range(ny - 1):
+            out.append(
+                ((i + 0.5) * block, (j + 0.5) * block, 0.0, half, half)
+            )
+    return out
+
 def nearest_edge_point(
     graph: LaneGraph, xy: np.ndarray, yaw: float = None,
     yaw_weight: float = 8.0,

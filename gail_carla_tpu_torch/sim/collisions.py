@@ -3,9 +3,10 @@
 ``criteria/collision.py:6-117``).
 
 - static layout: the vehicle body fully off the hard surface;
-- dynamic: ego OBB vs NPC vehicles (separating axis) and vs walkers;
-- static obstacles: only the empty case is ported (the procedural scene
-  has none).
+- static obstacles: ego OBB vs the scene's building/pole OBBs (separating
+  axis), a layout collision too;
+- dynamic: ego OBB vs NPC and scenario vehicles (separating axis) and vs
+  walkers.
 """
 from __future__ import annotations
 
@@ -42,10 +43,30 @@ def static_collision(params: VehicleParams, ego: VehicleState, bnd_segs,
 
 
 def obstacle_collision(scene, params: VehicleParams, ego: VehicleState):
-    """Ego vs static-obstacle OBBs; the procedural scene has none."""
-    if scene.ob_n != 0:
-        raise NotImplementedError("static obstacles are not ported yet")
-    return torch.zeros_like(ego.yaw, dtype=torch.bool)
+    """(N,) bool: the ego OBB overlaps one of the scene's O static-obstacle
+    OBBs (``scene.ob_pose``/``ob_extent``): the separating-axis test over
+    (N, O, 4 axes), no axis separating. The reference's collision sensor
+    fires on any static actor (criteria/collision.py:49-112, layout
+    penalty 0.65)."""
+    if scene.ob_n == 0:
+        return torch.zeros_like(ego.yaw, dtype=torch.bool)
+    n, O = ego.yaw.shape[0], scene.ob_pose.shape[0]
+    ego_ax = _axes(ego.yaw)                                   # (N, 2, 2)
+    ob_ax = _axes(scene.ob_pose[:, 2])                        # (O, 2, 2)
+    d = scene.ob_pose[None, :, :2] - ego.xy[:, None, :]       # (N, O, 2)
+    all_ax = torch.cat([ego_ax[:, None].expand(n, O, 2, 2),
+                        ob_ax[None].expand(n, O, 2, 2)], dim=2)
+    proj_d = torch.abs(_dot2(all_ax, d[:, :, None, :]))       # (N, O, 4)
+    m_ego = torch.abs(_dot2(all_ax[:, :, :, None, :],
+                            ego_ax[:, None, None, :, :]))     # (N,O,4,2)
+    r_ego = m_ego[..., 0] * params.half_length + (
+        m_ego[..., 1] * params.half_width)
+    m_ob = torch.abs(_dot2(all_ax[:, :, :, None, :],
+                           ob_ax[None, :, None, :, :]))
+    ext = scene.ob_extent[None, :, None, :]
+    r_ob = m_ob[..., 0] * ext[..., 0] + m_ob[..., 1] * ext[..., 1]
+    separated = (proj_d > r_ego + r_ob).any(dim=2)
+    return (~separated).any(dim=1)
 
 
 def _axes(yaw):

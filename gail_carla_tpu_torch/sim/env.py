@@ -101,7 +101,7 @@ def draw_reset(scene, cfg: EnvConfig, n: int,
                generator: Optional[torch.Generator]) -> ResetDraws:
     u = torch.rand((2, n), generator=generator, device=scene.device)
     traffic = None
-    if cfg.n_npc_vehicles or cfg.n_npc_walkers:
+    if cfg.n_npc_vehicles + cfg.n_scenario_actors or cfg.n_npc_walkers:
         traffic = draw_traffic_reset(scene, cfg, n, generator)
     return ResetDraws(u[0], u[1], traffic)
 
@@ -210,9 +210,11 @@ def reset_env(
         last_total=z,
         resume_idx=resume_idx.to(torch.int32),
         completed_last=completed_last,
-        traffic=reset_traffic(scene, cfg, ego.xy, draws.traffic, generator),
+        traffic=reset_traffic(scene, cfg, ego.xy, draws.traffic, generator,
+                              route_id=rid),
         history=(
-            make_empty_history(N, cfg.n_npc_vehicles, cfg.n_npc_walkers,
+            make_empty_history(N, cfg.n_npc_vehicles + cfg.n_scenario_actors,
+                               cfg.n_npc_walkers,
                                scene.tl_stop.shape[0],
                                scene.ss_center.shape[0], dev)
             if cfg.full_bev else None

@@ -7,6 +7,11 @@ Port of ``gail_carla_tpu/sim/traffic.py`` (zombie_vehicle_handler.py:
   (``scene.patrol_*``) with the LocalPlanner/PID stack, brake for a lead
   vehicle and for red lights, and teleport back to the patrol start when
   it runs out;
+- the last ``cfg.n_scenario_actors`` vehicle slots are the task's
+  scripted scenario actors (scenario_actor_handler.py:15-37): each drives
+  its ego route's polyline (``scene.sa_patrol``) at its task speed,
+  blind to lead vehicles and lights, and parks at the polyline's end;
+  slots the route does not use park far away;
 - walkers follow a patrol polyline at a signed lateral offset, the
   pavement band just off the road edge (``half_lane + SIDEWALK_OFFSET``
   to the right, past the oncoming lane to the left); a crossing flips
@@ -14,9 +19,9 @@ Port of ``gail_carla_tpu/sim/traffic.py`` (zombie_vehicle_handler.py:
 
 Randomness is injected: ``reset_traffic`` takes a ``TrafficResetDraws``
 and ``step_traffic`` the walkers' crossing coin, each drawn from a
-``torch.Generator`` when not given. Scenario actors and the real
-sidewalk centrelines of imported towns (``scene.walk_xy``) are not
-ported and raise.
+``torch.Generator`` when not given; the scenario slots take no draw.
+The real sidewalk centrelines of imported towns (``scene.walk_xy``) are
+not ported and raise.
 """
 from __future__ import annotations
 
@@ -49,11 +54,14 @@ CROSS_EVERY_S = 40.0
 # Spawn candidates (patrol, head) per vehicle; the first >= 10 m from the
 # ego wins, ties broken by a small jitter.
 N_CANDIDATES = 4
+# Where an unused scenario slot j parks: (PARK + PARK_STEP * j) on both axes.
+PARK, PARK_STEP = 1.0e6, 10.0
 
 
 class TrafficResetDraws(NamedTuple):
-    """The random numbers of one traffic reset, N envs, K vehicles with
-    C = 4 spawn candidates each, W walkers."""
+    """The random numbers of one traffic reset, N envs, K random vehicles
+    (``cfg.n_npc_vehicles``; the scenario slots take none) with C = 4
+    spawn candidates each, W walkers."""
 
     veh_pat: torch.Tensor       # (N, K, C) int patrol id in [0, P)
     veh_frac: torch.Tensor      # (N, K, C) uniform [0, 1) head fraction
@@ -66,8 +74,6 @@ class TrafficResetDraws(NamedTuple):
 
 
 def _check_cfg(scene, cfg: EnvConfig) -> None:
-    if cfg.n_scenario_actors:
-        raise NotImplementedError("scenario actors are not ported yet")
     if cfg.n_npc_walkers and scene.walk_xy is not None:
         raise NotImplementedError(
             "walkers on imported sidewalk centrelines are not ported yet"
@@ -125,23 +131,50 @@ def _bands(scene):
     return near, far
 
 
+def _scenario_slots(scene, n_slots: int, route_id: torch.Tensor):
+    """(xy, yaw, patrol, target speed) of the A = ``n_slots`` scenario
+    slots of each env, (N, A, ...): slot j takes its route's
+    ``sa_patrol[route, j]`` polyline at its start and task speed; a slot
+    without one parks at ``PARK + PARK_STEP * j`` with speed 0 on patrol
+    row 0."""
+    dev = route_id.device
+    width = scene.sa_patrol.shape[1]
+    j = torch.arange(n_slots, device=dev)
+    jc = j.clamp_max(width - 1)
+    rid = route_id.long()[:, None]
+    row = torch.where(j < width, scene.sa_patrol[rid, jc], -1)    # (N, A)
+    active = row >= 0
+    row_safe = row.clamp_min(0)
+    park = (PARK + PARK_STEP * j.to(torch.float32))[:, None]       # (A, 1)
+    xy = torch.where(active[..., None],
+                     scene.patrol_xy[row_safe.long(), 0], park)
+    yaw = torch.where(active, scene.patrol_yaw[row_safe.long(), 0], 0.0)
+    speed = torch.where(active, scene.sa_speed[rid, jc], 0.0)
+    return xy, yaw, row_safe.to(torch.int32), speed
+
+
 def reset_traffic(scene, cfg: EnvConfig, ego_xy: torch.Tensor,
                   draws: Optional[TrafficResetDraws] = None,
-                  generator: Optional[torch.Generator] = None
+                  generator: Optional[torch.Generator] = None,
+                  route_id: Optional[torch.Tensor] = None
                   ) -> TrafficState:
     """Spawn K vehicles per env on random patrol points >= 10 m from the
-    ego (zombie_vehicle_handler.py:30-40) and W walkers at random patrol
-    points, on a random pavement band, with random speeds."""
+    ego (zombie_vehicle_handler.py:30-40), then the A scenario slots of
+    the env's ego route (``route_id`` (N,), route 0 when not given), and W
+    walkers at random patrol points, on a random pavement band, with
+    random speeds."""
     _check_cfg(scene, cfg)
     n = ego_xy.shape[0]
     K, W = cfg.n_npc_vehicles, cfg.n_npc_walkers
+    A = cfg.n_scenario_actors
     dev = ego_xy.device
-    t = make_empty_traffic(n, K, W, dev)
-    if K == 0 and W == 0:
+    t = make_empty_traffic(n, K + A, W, dev)
+    if K + A == 0 and W == 0:
         return t
-    if draws is None:
+    if draws is None and (K or W):
         draws = draw_traffic_reset(scene, cfg, n, generator)
 
+    xy, yaw, patrol, head, target = [], [], [], [], []
     if K > 0:
         pat = draws.veh_pat
         pn = scene.patrol_n[pat.long()]
@@ -154,15 +187,31 @@ def reset_traffic(scene, cfg: EnvConfig, ego_xy: torch.Tensor,
         pick = torch.argmax(
             ok.to(torch.float32) + draws.veh_jitter * 0.1, dim=2
         )[..., None]                                            # (N,K,1)
-        patrol = torch.gather(pat, 2, pick)[..., 0]
-        head = torch.gather(heads, 2, pick)[..., 0]
-        xy = torch.gather(pos, 2, pick[..., None].expand(n, K, 1, 2))[
-            ..., 0, :]
-        yaw = _rows(scene.patrol_yaw, patrol, head, 1)[..., 0]
-        t.veh = VehicleState(xy=xy, yaw=yaw, speed=torch.zeros_like(yaw))
-        t.veh_patrol = patrol.to(torch.int32)
-        t.veh_head = head.to(torch.int32)
-        t.veh_target_speed = draws.veh_speed
+        k_patrol = torch.gather(pat, 2, pick)[..., 0]
+        k_head = torch.gather(heads, 2, pick)[..., 0]
+        xy.append(torch.gather(pos, 2, pick[..., None].expand(n, K, 1, 2))[
+            ..., 0, :])
+        yaw.append(_rows(scene.patrol_yaw, k_patrol, k_head, 1)[..., 0])
+        patrol.append(k_patrol.to(torch.int32))
+        head.append(k_head.to(torch.int32))
+        target.append(draws.veh_speed)
+    if A > 0:
+        if route_id is None:
+            route_id = torch.zeros(n, dtype=torch.int32, device=dev)
+        sa_xy, sa_yaw, sa_patrol, sa_speed = _scenario_slots(scene, A,
+                                                             route_id)
+        xy.append(sa_xy)
+        yaw.append(sa_yaw)
+        patrol.append(sa_patrol)
+        head.append(torch.zeros_like(sa_patrol))
+        target.append(sa_speed)
+    if K + A > 0:
+        veh_yaw = torch.cat(yaw, dim=1)
+        t.veh = VehicleState(xy=torch.cat(xy, dim=1), yaw=veh_yaw,
+                             speed=torch.zeros_like(veh_yaw))
+        t.veh_patrol = torch.cat(patrol, dim=1)
+        t.veh_head = torch.cat(head, dim=1)
+        t.veh_target_speed = torch.cat(target, dim=1)
 
     if W > 0:
         pat = draws.walker_pat
@@ -241,10 +290,17 @@ def _desired_speed_cap(scene, traffic: TrafficState, ego: VehicleState,
 
 def _step_vehicles(scene, cfg: EnvConfig, traffic: TrafficState,
                    ego: VehicleState, sim_time) -> TrafficState:
+    """The vehicles' tick. The last ``cfg.n_scenario_actors`` slots drive
+    blind (no lead-vehicle or red-light cap: constant_speed_agent.py:5-29,
+    basic_agent.py:32) and stop at their polyline's end, where their
+    target speed latches to 0, instead of teleporting back."""
     n, K = traffic.veh_patrol.shape
+    is_scenario = torch.arange(K, device=sim_time.device) >= (
+        K - cfg.n_scenario_actors)
     tl_states = signals.light_states(scene, sim_time)
     cap = _desired_speed_cap(scene, traffic, ego, tl_states)
-    target = torch.minimum(traffic.veh_target_speed, cap)
+    target = torch.where(is_scenario, traffic.veh_target_speed,
+                         torch.minimum(traffic.veh_target_speed, cap))
     ap, action = local_planner_act(
         scene.patrol_xy, scene.patrol_cmd, traffic.veh_ap, traffic.veh.xy,
         traffic.veh.yaw, traffic.veh.speed, traffic.veh_patrol,
@@ -255,21 +311,26 @@ def _step_vehicles(scene, cfg: EnvConfig, traffic: TrafficState,
     head = _advance_patrol(scene, traffic.veh_patrol, traffic.veh_head,
                            veh.xy)
 
-    # patrol exhausted -> teleport back to its start (zombie_vehicle.py)
+    # patrol exhausted -> teleport back to its start (zombie_vehicle.py);
+    # scenario actors stop at their route's end
     pn = scene.patrol_n[traffic.veh_patrol.long()]
-    teleport = head >= pn - 8
+    at_end = head >= torch.where(is_scenario, pn - 2, pn - 8)
+    teleport = at_end & ~is_scenario
     zero = torch.zeros_like(head)
     start_xy = _rows(scene.patrol_xy, traffic.veh_patrol, zero, 1)[..., 0, :]
     start_yaw = _rows(scene.patrol_yaw, traffic.veh_patrol, zero, 1)[..., 0]
     veh = VehicleState(
         xy=torch.where(teleport[..., None], start_xy, veh.xy),
         yaw=torch.where(teleport, start_yaw, veh.yaw),
-        speed=torch.where(teleport, 0.0, veh.speed),
+        speed=torch.where(at_end, 0.0, veh.speed),
     )
     ap = tree_select(teleport, make_autopilot((n, K), head.device), ap)
     return dataclasses.replace(
         traffic, veh=veh, veh_ap=ap,
         veh_head=torch.where(teleport, 0, head).to(torch.int32),
+        # ended scenario actors park for the rest of the episode
+        veh_target_speed=torch.where(at_end & is_scenario, 0.0,
+                                     traffic.veh_target_speed),
     )
 
 

@@ -7,9 +7,10 @@ and reading the CSVs.
 
 The policy is ``ModelConfig()`` on the ``--obs-mode`` BEV (``bev``: the
 CUDA kernel B1 renders it on the card; ``bev6``: B2), with ``--expert``
-the scripted expert instead (the imitation ceiling). ``--town`` (a
-reconstructed reference town) needs the town importers, which are not
-ported yet (ROADMAP A7), and raises, as ``--obs-mode state`` does.
+the scripted expert instead (the imitation ceiling), which also runs at
+``--obs-mode state``. ``--town`` (a reconstructed reference town) needs
+the town importers, which are not ported yet (ROADMAP A7), and raises; so
+does a policy at ``--obs-mode state`` (``STATE_POLICY_ERROR``).
 
 Usage (on the card unless ``--device cpu``):
     python -m gail_carla_tpu_torch.tools.benchmark_policy [--ckpt DIR]
@@ -41,6 +42,15 @@ LATCH_KEYS = (
     ("collision", "collision", torch.bool),
 )
 
+# gail_carla_tpu/tools/benchmark_policy.py:35-38 initialises a conv policy
+# on (3, W, W) whatever the obs mode, and applying it to state vectors
+# fails; its expert mode never applies the policy
+STATE_POLICY_ERROR = (
+    "benchmark_policy scores no policy at obs_mode='state': the "
+    "reference's tool builds a conv policy on the (3, W, W) BEV for every "
+    "obs mode, which fails on state vectors; use --expert, or a BEV mode"
+)
+
 
 def load_policy(ckpt_dir, obs_shape, device):
     """``ModelConfig()``'s policy on ``device``: numpy-seeded weights
@@ -64,6 +74,8 @@ def benchmark(ckpt_dir=None, episodes_per_route: int = 1,
     ``scene_kwargs`` would build."""
     from gail_carla_tpu_torch.train import make_scene
 
+    if obs_mode == "state" and not expert:
+        raise NotImplementedError(STATE_POLICY_ERROR)
     dev = resolve_device(device)
     if scene is None:
         scene = make_scene(dict(scene_kwargs or {}), dev)

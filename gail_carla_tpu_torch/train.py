@@ -19,8 +19,11 @@ Usage (on the card unless ``--device cpu``):
     python -m gail_carla_tpu_torch.train --preset reference
     python -m gail_carla_tpu_torch.train --params params.json
 
-Not ported yet, and raising ``NotImplementedError``: the town presets
-(ROADMAP A7, the town importers) and more than one device (A5).
+``--obs-mode state`` trains with ``algo="ppo"`` only (``--params`` sets
+it): the reference's WDGAIL critic fails on state vectors, and the port
+raises ``NotImplementedError`` for it before the demos. Not ported yet,
+and raising too: the town presets (ROADMAP A7, the town importers) and
+more than one device (A5).
 """
 from __future__ import annotations
 
@@ -40,6 +43,7 @@ from gail_carla_tpu_torch.algo.expert import generate_demos
 from gail_carla_tpu_torch.algo.learner import WDGAILLearner
 from gail_carla_tpu_torch.config import EnvConfig, ModelConfig, TrainConfig
 from gail_carla_tpu_torch.device import resolve_device
+from gail_carla_tpu_torch.models.discriminator import STATE_OBS_ERROR
 from gail_carla_tpu_torch.scene.scene import make_benchmark_scene
 from gail_carla_tpu_torch.utils import checkpoint as ckpt_mod
 from gail_carla_tpu_torch.utils.logging import MetricsWriter
@@ -189,6 +193,10 @@ def run(env_cfg, model_cfg, tcfg, scene_kwargs, demo_steps,
         raise NotImplementedError(
             "training on more than one device is not ported yet "
             "(ROADMAP A5)")
+    if env_cfg.obs_mode == "state" and tcfg.algo != "ppo":
+        # the reference fails at its first critic update; refuse before
+        # the demos are paid for
+        raise NotImplementedError(STATE_OBS_ERROR)
     dev = resolve_device(device)
     scene = make_scene(scene_kwargs, dev)
 

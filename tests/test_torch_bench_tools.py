@@ -247,7 +247,10 @@ def test_bench_clis_wait_on_the_town_importers():
     """The NoCrash and CoRL CLIs benchmark the reconstructed towns
     (``--town Town01`` by default): they raise until the town importers
     are ported, and keep the JAX tools' ``--ckpt``/``--expert`` error;
-    so does ``benchmark_policy --town``, and ``--obs-mode state``."""
+    so does ``benchmark_policy --town``. A policy at ``obs_mode="state"``
+    raises as the JAX tool fails (its conv policy cannot take state
+    vectors); the expert at ``"state"`` runs
+    (``tests/test_torch_state_learner.py``)."""
     for main in (nocrash_bench.main, corl_bench.main):
         with pytest.raises(NotImplementedError, match="A7"):
             main(["--expert", "--device", "cpu"])
@@ -255,6 +258,7 @@ def test_bench_clis_wait_on_the_town_importers():
             main(["--device", "cpu"])
     with pytest.raises(NotImplementedError, match="A7"):
         benchmark_policy.main(["--town", "Town01", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="obs_mode"):
+    with pytest.raises(NotImplementedError, match="obs_mode='state'"):
         benchmark_policy.benchmark(scene_kwargs=dict(SMOKE), device="cpu",
-                                   obs_mode="state", max_steps=2)
+                                   obs_mode="state", expert=False,
+                                   max_steps=2)

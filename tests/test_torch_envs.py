@@ -122,15 +122,17 @@ def test_endless_suite_matches_jax():
 
 
 def test_unported_suite_options_raise():
-    """The reconstructed towns need the town importers (ROADMAP A7), and
-    scripted scenario actors are not ported: both raise, nothing falls
-    back to the grid."""
+    """The reconstructed towns need the town importers (ROADMAP A7): they
+    raise, nothing falls back to the grid. Scripted scenario actors are
+    ported (``tests/test_torch_scenario_actors.py``), on generated scenes
+    only, as in the JAX suite."""
     for fn in (suites.leaderboard_suite, suites.nocrash_suite,
                suites.corl2017_suite):
         with pytest.raises(NotImplementedError, match="A7"):
             fn(town="Town01", device="cpu")
-    with pytest.raises(NotImplementedError, match="scenario actors"):
-        suites.leaderboard_suite(scenario_actors={0: []}, device="cpu")
+    with pytest.raises(ValueError, match="generated scenes"):
+        suites.leaderboard_suite(town="Town01", scenario_actors={0: []},
+                                 device="cpu")
 
 
 def test_registry_ids_match_jax():

@@ -29,6 +29,8 @@ ENV_API_MODULES = (
     "gail_carla_tpu_torch.tools.nocrash_bench",
     "gail_carla_tpu_torch.tools.corl_bench",
 )
+# the state-vector observation path (obs_mode="state")
+STATE_MODULES = ("gail_carla_tpu_torch.ops.state_obs",)
 
 
 def _port_files():
@@ -80,8 +82,9 @@ def test_port_sources_import_no_jax():
 def test_port_imports_with_jax_blocked():
     """Import every port module and chip_smoke (without running it) in a
     fresh interpreter where JAX and the JAX package cannot be imported;
-    the env API and the policy benchmarks are among them."""
-    assert set(ENV_API_MODULES) <= set(_port_modules())
+    the env API, the policy benchmarks and the state observation are
+    among them."""
+    assert set(ENV_API_MODULES + STATE_MODULES) <= set(_port_modules())
     code = "\n".join([
         "import importlib, sys",
         f"for name in {BLOCKED!r}:",

@@ -463,37 +463,30 @@ def _jax_update_draws(learner, state, cfg, n_patrols):
     ), int((~dones).sum() != dones.size)
 
 
-@pytest.mark.parametrize("algo", ["wdgail", "ppo"])
-def test_learner_update_matches_jax(setup, algo):
-    """One whole update from the same initial weights and reset, every
-    draw injected: ``"wdgail"`` with the BC blend, reward normalisation
-    and a reward shift (critic warm-up: 2 epochs), and ``"ppo"`` on the
-    env reward without an expert. Compared: every metric, the new policy
-    and critic weights, the env state it hands on, the reward statistics
-    and the BC weight."""
+def check_update_matches_jax(jax_scene, port_scene, env, model, tcfg,
+                            jax_expert, port_expert, store_obs=True):
+    """One whole update of JAX's learner and of the port's from the same
+    initial weights and reset, every draw injected, ``store_obs`` on both
+    sides. Holds every metric, the new policy and critic weights, the
+    reward statistics, the BC weight and the env state handed on; returns
+    (the port's metrics, its new state)."""
     import jax
     from gail_carla_tpu.algo.learner import WDGAILLearner as JaxLearner
     from test_torch_traffic import jax_batch_reset_draws
 
-    if algo == "wdgail":
-        tcfg = dataclasses.replace(TCFG, gail_reward_shift=0.5)
-        jax_expert, port_expert = setup["expert"], setup["port_expert"]
-    else:
-        tcfg = dataclasses.replace(TCFG, algo="ppo", bcgail=False)
-        jax_expert = port_expert = None
-    jl = JaxLearner(setup["jax_scene"], ENV, MODEL, tcfg, jax_expert)
+    jl = JaxLearner(jax_scene, env, model, tcfg, jax_expert,
+                    store_obs=store_obs)
     js = jl.init_state()
-    port_scene = setup["port_scene"]
     n_patrols = port_scene.patrol_xy.shape[0]
-    draws, had_resets = _jax_update_draws(jl, js, ENV, n_patrols)
+    draws, had_resets = _jax_update_draws(jl, js, env, n_patrols)
     assert had_resets
     _, k_env = jax.random.split(jl._init_rng)
-    reset_draws, gnss = jax_batch_reset_draws(k_env, tcfg.n_envs, ENV,
+    reset_draws, gnss = jax_batch_reset_draws(k_env, tcfg.n_envs, env,
                                               n_patrols)
     js2, want = jl.update(js)
 
     pl = WDGAILLearner(
-        port_scene, ENV, MODEL, tcfg, port_expert,
+        port_scene, env, model, tcfg, port_expert, store_obs=store_obs,
         policy_params=jax.tree.map(np.asarray, jl._policy_params0),
         disc_params=jax.tree.map(np.asarray, jl._disc_params0))
     ps = pl.init_state(reset_draws=reset_draws, reset_gnss=gnss)
@@ -502,9 +495,9 @@ def test_learner_update_matches_jax(setup, algo):
     _compare_aux(got, want)
     assert ps2.update_i == int(js2.update_i) == 1
     _compare_params(ps2.policy.state_dict(),
-                    flax_to_state_dict(js2.policy_params, MODEL), "policy")
+                    flax_to_state_dict(js2.policy_params, model), "policy")
     _compare_params(ps2.disc.state_dict(),
-                    critic_state_dict(js2.disc_params, MODEL), "critic")
+                    critic_state_dict(js2.disc_params, model), "critic")
     _close(ps2.gail_gamma, js2.gail_gamma, ELEM, "gail_gamma")
     _close(ps2.returns_acc, js2.returns_acc, LOSS, "returns_acc")
     for f in ("mean", "var", "count"):
@@ -514,6 +507,26 @@ def test_learner_update_matches_jax(setup, algo):
     _close(ps2.render.xy, js2.render.xy, LOSS, "env xy")
     np.testing.assert_array_equal(ps2.render.head.numpy(),
                                   np.asarray(js2.render.head))
+    return got, ps2
+
+
+@pytest.mark.parametrize("algo", ["wdgail", "ppo"])
+def test_learner_update_matches_jax(setup, algo):
+    """One whole update from the same initial weights and reset, every
+    draw injected: ``"wdgail"`` with the BC blend, reward normalisation
+    and a reward shift (critic warm-up: 2 epochs), and ``"ppo"`` on the
+    env reward without an expert. Compared: every metric, the new policy
+    and critic weights, the env state it hands on, the reward statistics
+    and the BC weight."""
+    if algo == "wdgail":
+        tcfg = dataclasses.replace(TCFG, gail_reward_shift=0.5)
+        jax_expert, port_expert = setup["expert"], setup["port_expert"]
+    else:
+        tcfg = dataclasses.replace(TCFG, algo="ppo", bcgail=False)
+        jax_expert = port_expert = None
+    got, ps2 = check_update_matches_jax(
+        setup["jax_scene"], setup["port_scene"], ENV, MODEL, tcfg,
+        jax_expert, port_expert)
     if algo == "wdgail":
         assert float(got["disc/reward_rms_std"]) != 1.0
         assert float(got["ppo/bc_loss"]) != 0.0

@@ -372,17 +372,19 @@ def test_dynamic_collisions_and_hazards_match_jax():
 
 
 def test_unported_traffic_options_raise(scenes):
-    """Scenario actors and walkers on imported sidewalk centrelines are
-    not ported: reset and step refuse them instead of running without."""
+    """Walkers on imported sidewalk centrelines are not ported (they come
+    with the town importers): reset and step refuse them instead of
+    running without. Scenario actors are ported and run
+    (``tests/test_torch_scenario_actors.py``)."""
     port_scene, _ = scenes
     rid = torch.tensor([0, 1], dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="scenario actors"):
-        port_env.reset_batch(port_scene, dataclasses.replace(
-            ENV, n_scenario_actors=1), rid)
-    st, _, _ = port_env.reset_batch(port_scene, ENV, rid)
-    with pytest.raises(NotImplementedError, match="scenario actors"):
-        port_env.step_batch(port_scene, dataclasses.replace(
-            ENV, n_scenario_actors=1), st, torch.zeros((2, 2)))
+    sa = dataclasses.replace(ENV, n_scenario_actors=1)
+    st, _, _ = port_env.reset_batch(port_scene, sa, rid)
+    port_env.step_batch(port_scene, sa, st, torch.zeros((2, 2)))
+    assert st.traffic.veh_patrol.shape == (2, ENV.n_npc_vehicles + 1)
     sidewalks = dataclasses.replace(port_scene, walk_xy=port_scene.patrol_xy)
     with pytest.raises(NotImplementedError, match="sidewalk"):
         port_env.reset_batch(sidewalks, ENV, rid)
+    st, _, _ = port_env.reset_batch(port_scene, ENV, rid)
+    with pytest.raises(NotImplementedError, match="sidewalk"):
+        port_env.step_batch(sidewalks, ENV, st, torch.zeros((2, 2)))
