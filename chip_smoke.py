@@ -19,10 +19,13 @@ the training entry point ``train.run``.
 - the ``"bev6"`` path: 6-channel observation with 20 NPC vehicles and 50
   walkers per env (NoCrash "regular" Town01 densities), kernel
   ``bev6_raster`` (the TPU kernel ``ops/bev6_pallas.py``);
-- the ``"train bev"`` path: ``train.run`` at the reference preset: the
-  scripted expert's demos with noise (``generate_demos``) on the 9
-  training routes and the held-out route, the expert and validation
-  buffers, ``TRAIN_UPDATES`` update(s) (10 envs x 720 steps, the packed
+- the ``"train bev"`` path: ``train.run(use_sharding=True)`` at the
+  reference preset inside a world-1 NCCL group (the data-parallel
+  learner, its collectives and the gathered checkpoint): the scripted
+  expert's demos with noise (``generate_demos``) on the training routes
+  ``TRAIN_ROUTES`` and the held-out route ``TRAIN_EVAL_ROUTE``, the
+  expert and validation buffers, ``TRAIN_UPDATES`` update(s) (10 envs x
+  720 steps, the packed
   observation store, 6 warm-up critic epochs with the gradient penalty,
   16 PPO epochs of 128-sample minibatches), the evaluation on the held-out route, the
   metrics log and the checkpoints; the demos' ms per step and valid rows
@@ -79,7 +82,23 @@ the training entry point ``train.run``.
   memory; (e) the reference scene with the grid's building obstacles: a
   hard right turn scores a layout collision (penalty 65) in every env,
   the expert none, and the obstacle test on ``OB_POSES`` random poses and
-  the cameras on the card agree with the CPU.
+  the cameras on the card agree with the CPU;
+- the ``"sharded"`` path, training on more than one rank: (b) a world-1
+  ``ShardedWDGAILLearner`` repeats the reference phase's card update at
+  the smoke preset (same weights and draws) within the CPU tests'
+  tolerances, as a second run of the plain update does; (d) the GPS
+  expert drives one env per route for ``GPS_STEPS`` steps (each at least
+  ``GPS_MIN_M`` m along its route) and its first ``GPS_CMP_STEPS`` steps
+  agree card vs CPU; (c) ``SHARD_WORLD`` processes of this script
+  (``--sharded-rank``), gloo ranks with CUDA tensors on the one card
+  (NCCL refuses two ranks on one GPU), each a ``ShardedWDGAILLearner`` at
+  the reference widths, started before the reference phase so that their
+  set-up and updates run beside it (the timed phases after it wait until
+  their updates have ended): after two updates every replicated
+  leaf is bitwise equal on both ranks and the metrics are equal, a
+  replica perturbed by 1 stays apart after an update, at most 40 policy
+  all-reduces per update; they time the policy's all-reduce once this
+  phase waits for them.
 
 Each kernel is checked against its plain version on the same render
 states of the rollout's 256 envs, at W=192 and W=100, with envs placed on
@@ -99,12 +118,18 @@ same draws and must agree within the CPU tests' tolerances; a minibatch
 fetched from the training path's packed store must equal its re-render
 through B1.
 
-It prints one progress line per phase (with ``ptxas``'s registers,
-shared memory and spills of each build), a per-step time breakdown of
-each path, a JSON line of kernel measurements, the card's name and power
-limit, and as its last line ``{"ok": true, "device": {...}}``. Any
-failure raises and exits non-zero; without a CUDA device it exits
-non-zero before printing a result.
+It prints the host's CPU model and count, one progress line per phase
+(with ``ptxas``'s registers, shared memory and spills of each build), a
+per-step time breakdown of each path (the bev env step at 256 envs is the
+host-speed marker, printed again beside the total), a JSON line of kernel
+measurements, the card's name and power limit, and as its last line
+``{"ok": true, "device": {...}}``. Any failure raises and exits
+non-zero; without a CUDA device it exits non-zero before printing a
+result.
+
+``python3 chip_smoke.py --shard-cost`` instead measures what the world-1
+sharded learner adds to a reference-preset update: a plain and a sharded
+learner side by side in one process (``shard_cost``).
 
 float32 matrix products and convolutions run in full float32: TF32 is
 switched off for both (``torch.backends.cuda.matmul.allow_tf32`` and
@@ -112,10 +137,13 @@ switched off for both (``torch.backends.cuda.matmul.allow_tf32`` and
 """
 from __future__ import annotations
 
+import atexit
 import contextlib
 import dataclasses
+import hashlib
 import io
 import json
+import os
 import pathlib
 import subprocess
 import sys
@@ -124,6 +152,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from gail_carla_tpu_torch import cuda_build
 from gail_carla_tpu_torch import train as train_mod
@@ -131,6 +160,9 @@ from gail_carla_tpu_torch.agents.autopilot import (
     TARGET_SPEED, autopilot_act, reset_autopilot_where,
 )
 from gail_carla_tpu_torch.agents.controllers import make_autopilot
+from gail_carla_tpu_torch.agents.gps_autopilot import (
+    draw_gps_noise, gps_autopilot_act, make_gps_autopilot,
+)
 from gail_carla_tpu_torch.algo import bc as bc_mod
 from gail_carla_tpu_torch.algo import learner as learner_mod
 from gail_carla_tpu_torch.algo import ppo as ppo_mod
@@ -166,6 +198,8 @@ from gail_carla_tpu_torch.ops.gae import compute_returns
 from gail_carla_tpu_torch.ops.state_obs import (
     STATE_OBS_DIM, state_observation_batch,
 )
+from gail_carla_tpu_torch.parallel.collectives import all_mean
+from gail_carla_tpu_torch.parallel.mesh import ShardedWDGAILLearner
 from gail_carla_tpu_torch.scene.routes import generate_routes
 from gail_carla_tpu_torch.scene.scene import build_scene, make_benchmark_scene
 from gail_carla_tpu_torch.scene.town import (
@@ -198,17 +232,21 @@ EVAL_ROUTE, EVAL_ENVS, EVAL_STEPS = 3, 16, 200
 ROLL_ENVS, ROLL_STEPS = 256, 32
 # the training phase: train.run at the reference preset (TrainConfig(
 # n_envs=10): 720 steps per env), cut to TRAIN_UPDATES updates and
-# DEMO_STEPS expert steps per route (the preset's 4,000 cut: on the CPU
-# with the same seeds every training route's first episode ends by step
-# 1,487 and route 3's by 1,166; the card draws another stream, hence the
-# margin)
-TRAIN_UPDATES, DEMO_STEPS = 1, 1600
+# DEMO_STEPS expert steps per route on the training routes TRAIN_ROUTES
+# and the held-out route TRAIN_EVAL_ROUTE: the three routes whose first
+# episodes end first (with the preset's 9 + 1 routes on the card: route 2
+# at step 763, 7 at 1,021, 1 at 1,050, the others at 1,106-1,499; with
+# these three on the card: 842, 1,032 and 1,004), so that the preset's
+# 4,000 steps cut to DEMO_STEPS still complete an episode on every route
+TRAIN_UPDATES, DEMO_STEPS = 1, 1050
+TRAIN_ROUTES, TRAIN_EVAL_ROUTE = (2, 7), 1
 # the card-vs-CPU update's expert demos: route 0 of the smoke scene ends
 # its first episode near step 520
 SMOKE_DEMO_STEPS = 600
-# card-vs-CPU demos: actions, metrics and positions (closed loop, 200
-# steps, float32 sin/cos of the two devices)
+# card-vs-CPU demos: actions, metrics and positions (closed loop,
+# CMP_DEMO_STEPS steps, float32 sin/cos of the two devices)
 DEMO_TOL = 1e-4
+CMP_DEMO_STEPS = 100
 # the card-vs-CPU update at the smoke preset: 16 steps per env
 SMOKE_STEPS_PER_ENV = 16
 # the CPU tests' tolerances (tests/test_torch_learner.py): losses and aux
@@ -223,26 +261,26 @@ PEAK_BYTES_PER_S = 3.35e12
 # the steps that fill the full render's ring, the card-vs-CPU tree
 # (routes x steps)
 TREE_ROUTES, TREE_STEPS = 10, 16
-BC_EPOCHS = 2
+BC_EPOCHS = 1
 TREE_UPDATE_STEPS = 16
-TREE_EVAL_STEPS = 150
+TREE_EVAL_STEPS = 60
 RING_STEPS = 22
-CMP_ROUTES, CMP_STEPS = 2, 3
+CMP_ROUTES, CMP_STEPS = 2, 2
 # the suites phase: steps of each DrivingEnv the registry makes, the
 # vector env (envs x steps), the step cap of each NoCrash tier, CoRL task
 # type and leaderboard benchmark (the tools' 2,400-6,000 cut), the endless
 # expert (envs x at most steps), the card-vs-CPU tier's steps and
 # DrivingEnv's steps
-REGISTRY_STEPS = 5
+REGISTRY_STEPS = 3
 VEC_ENVS, VEC_STEPS = 16, 50
-SUITE_STEPS = 10
+SUITE_STEPS = 5
 ENDLESS_ENVS, ENDLESS_STEPS = 8, 400
-CMP_TIER_STEPS, CMP_ENV_STEPS = 25, 20
+CMP_TIER_STEPS, CMP_ENV_STEPS = 12, 10
 # the registry's ids driven in the suites phase, one per family; Endless
 # with the short rows of the endless check
 REGISTRY_IDS = ("LeaderBoard-v0", "NoCrash-v2", "CoRL2017-v1",
                 "CoRL2017-v3", "Endless-v0")
-ENDLESS_ROWS = dict(n_rows=6, row_m=150.0)
+ENDLESS_ROWS = dict(n_rows=6, row_m=60.0)
 NOCRASH_IDS = {"empty": "NoCrash-v0", "regular": "NoCrash-v1",
                "dense": "NoCrash-v2", "leaderboard": "NoCrash-v3"}
 CORL_IDS = {t: f"CoRL2017-v{i}" for i, t in enumerate(TASK_TYPES)}
@@ -255,11 +293,25 @@ CORL_IDS = {t: f"CoRL2017-v{i}" for i, t in enumerate(TASK_TYPES)}
 # close and the steps it then keeps driving; (e) the hard right turn's
 # steps, the expert's steps and the random poses of the card-vs-CPU SAT
 STATE_STEPS, STATE_BIG_ENVS, STATE_BIG_STEPS = 16, 256, 8
-STATE_DEMO_STEPS, STATE_EVAL_STEPS = 50, 100
+STATE_DEMO_STEPS, STATE_EVAL_STEPS = 30, 100
 STATE_OBS_ATOL = 1e-6
 SA_AHEAD_M, SA_STRAIGHT_M, SA_SLOTS = 45.0, 30.0, 3
-SA_EXPERT_STEPS, SA_GAP, SA_HOLD = 400, 20.0, 30
-OB_STEPS, OB_EXPERT_STEPS, OB_POSES = 240, 120, 4096
+SA_EXPERT_STEPS, SA_GAP, SA_HOLD = 400, 20.0, 10
+OB_STEPS, OB_EXPERT_STEPS, OB_POSES = 240, 60, 4096
+# the sharded phase: (c) two gloo ranks on the one card at the reference
+# widths, each with SHARD_STEPS steps of its one env per update, PPO and
+# critic minibatches of SHARD_MB rows (SHARD_PPO_EPOCHS x 2 policy
+# all-reduces per update), an expert buffer of SHARD_DEMO_STEPS demo steps
+# on 2 routes, and its time limit; (d) the GPS expert, one env per route
+# for GPS_STEPS steps (each must make GPS_MIN_M of route progress; the
+# JAX test asks 100 m in 600 steps), its first GPS_CMP_STEPS steps on the
+# card against the CPU
+SHARD_WORLD, SHARD_STEPS, SHARD_MB, SHARD_PPO_EPOCHS = 2, 32, 16, 4
+SHARD_DEMO_STEPS, SHARD_TIMEOUT_S = 48, 240
+# the files that tell the ranks the main process waits for them, and the
+# main process that a rank's updates are done
+GO_FILE, UPDATED_FILE = "go", "updated"
+GPS_STEPS, GPS_MIN_M, GPS_CMP_STEPS = 300, 40.0, 50
 SEED = 0
 T0 = time.time()
 
@@ -731,6 +783,7 @@ def breakdown(scene, cfg: EnvConfig, net, gen, start, render_fn):
           f"steps: {n_envs * n_steps / (time.time() - t_roll):.1f} "
           f"env-steps/s", flush=True)
     progress(f"breakdown {cfg.obs_mode}", t)
+    return parts
 
 
 def demos_to(demos: DemoBatch, dev) -> DemoBatch:
@@ -918,12 +971,14 @@ def report_call(rec, tcfg):
 
 def train_path(env_cfg: EnvConfig, model_cfg: ModelConfig, tcfg, preset,
                dev):
-    """The training path at the reference preset through ``train.run``:
-    the scripted expert's demos (``DEMO_STEPS`` steps on the training
-    routes and on the held-out route), the expert and validation buffers,
-    ``TRAIN_UPDATES`` updates with the packed observation store, the
-    evaluation on the held-out route, the metrics log and the checkpoints,
-    in a temporary directory. Every launch count is set to 0 just before
+    """The training path at the reference preset through ``train.run``
+    with ``use_sharding=True`` inside the world-1 NCCL group (the sharded
+    learner, its collectives and the gathered checkpoint): the scripted
+    expert's demos (``DEMO_STEPS`` steps on the training routes and on the
+    held-out route), the expert and validation buffers, ``TRAIN_UPDATES``
+    updates with the packed observation store, the evaluation on the
+    held-out route, the metrics log and the checkpoints, in a temporary
+    directory. Every launch count is set to 0 just before
     ``run`` and read just after. Raises unless B1 ran once per render of
     each update, B2 never, every loss, aux value and parameter is finite,
     a stored minibatch equals its re-render, the last ``update_*``
@@ -939,7 +994,7 @@ def train_path(env_cfg: EnvConfig, model_cfg: ModelConfig, tcfg, preset,
             state, _ = train_mod.run(
                 env_cfg, model_cfg, tcfg, preset["scene"], DEMO_STEPS,
                 max_updates=TRAIN_UPDATES, log_dir=log_dir,
-                ckpt_dir=ckpt_dir, device=dev)
+                ckpt_dir=ckpt_dir, use_sharding=True, device=dev)
         torch.cuda.synchronize()
         launches = bev_cuda.LIB.launches
         if bev6_cuda.LIB.launches:
@@ -947,6 +1002,9 @@ def train_path(env_cfg: EnvConfig, model_cfg: ModelConfig, tcfg, preset,
         updates = probe.of("update")
         if len(updates) != TRAIN_UPDATES:
             raise AssertionError(f"{len(updates)} updates ran")
+        if not isinstance(updates[-1]["args"][0], ShardedWDGAILLearner):
+            raise AssertionError("train.run did not take the sharded "
+                                 "learner")
         per = {k: sum(c["b1"] for c in probe.of(k))
                for k in ("buffer", "update", "eval")}
         expert, expert_val = (c["out"] for c in probe.of("buffer"))
@@ -1038,15 +1096,15 @@ def demo_draws_to(d: DemoDraws, dev) -> DemoDraws:
 
 def demos_card_vs_cpu(seed: int, dev):
     """``generate_demos`` with noise, ``obey_signals=True``, the bev6 path
-    with 3 NPC vehicles and 3 walkers, 2 envs x 200 steps on the smoke
-    scene, on the card and on the CPU with the same draws (made on the
-    CPU): the only run of the expert's signal and hazard caps on the card.
-    Raises unless actions, metrics and positions agree within
+    with 3 NPC vehicles and 3 walkers, 2 envs x ``CMP_DEMO_STEPS`` steps
+    on the smoke scene, on the card and on the CPU with the same draws
+    (made on the CPU): the only run of the expert's signal and hazard caps
+    on the card. Raises unless actions, metrics and positions agree within
     ``DEMO_TOL`` and ``valid`` is equal."""
     smoke = make_presets()["smoke"]
     cfg = train_mod.demo_config(dataclasses.replace(
         smoke["env"], obs_mode="bev6", n_npc_vehicles=3, n_npc_walkers=3))
-    n, n_steps = 2, 200
+    n, n_steps = 2, CMP_DEMO_STEPS
     cpu = torch.device("cpu")
     cpu_scene = make_benchmark_scene(**smoke["scene"], device=cpu)
     gen = torch.Generator()
@@ -1095,7 +1153,9 @@ def train_card_vs_cpu(seed: int):
     ``SMOKE_STEPS_PER_ENV`` steps) on the card and on the CPU from the same
     weights, reset and draws (made on the CPU), with the same expert rows
     (the scripted expert's); raises unless the losses and aux agree within
-    the CPU tests' tolerance and the new weights within ``PARAM_ATOL``."""
+    the CPU tests' tolerance and the new weights within ``PARAM_ATOL``.
+    Returns the card's inputs and result, which the sharded phase's world-1
+    learner repeats."""
     smoke = make_presets()["smoke"]
     env_cfg, model_cfg = smoke["env"], smoke["model"]
     tcfg = dataclasses.replace(
@@ -1141,12 +1201,7 @@ def train_card_vs_cpu(seed: int):
                                 policy_params=pparams, disc_params=dparams)
         state = learner.init_state(reset_draws=to_device(reset, d),
                                    reset_gnss=gnss.to(d))
-        dd = dataclasses.replace(
-            draws, action_noise=draws.action_noise.to(d),
-            env_draws=[to_device(e, d) for e in draws.env_draws],
-            disc=[to_device(e, d) for e in draws.disc],
-            ppo_perms=draws.ppo_perms.to(d), val_pre=draws.val_pre.to(d),
-            val_post=draws.val_post.to(d))
+        dd = update_draws_to(draws, d)
         state, metrics = learner.update(state, dd)
         outs.append((expert, state, metrics))
     (ge, gs, gm), (ce, cs, cm) = outs
@@ -1168,6 +1223,19 @@ def train_card_vs_cpu(seed: int):
           flush=True)
     if worst_param > PARAM_ATOL:
         raise AssertionError("card and CPU updates disagree on the weights")
+    return dict(scene=cpu_scene, cfgs=(env_cfg, model_cfg, tcfg), expert=ge,
+                params=(pparams, dparams), reset=reset, gnss=gnss,
+                draws=draws, state=gs, metrics=gm)
+
+
+def update_draws_to(draws: UpdateDraws, dev) -> UpdateDraws:
+    """The same update draws on device ``dev``."""
+    return dataclasses.replace(
+        draws, action_noise=draws.action_noise.to(dev),
+        env_draws=[to_device(e, dev) for e in draws.env_draws],
+        disc=[to_device(e, dev) for e in draws.disc],
+        ppo_perms=draws.ppo_perms.to(dev), val_pre=draws.val_pre.to(dev),
+        val_post=draws.val_post.to(dev))
 
 
 # --- the tree bc phase ------------------------------------------------------
@@ -2346,6 +2414,501 @@ def options_path(scene, model_cfg: ModelConfig, env6_cfg: EnvConfig,
     return b2, err, times
 
 
+# --- the sharded phase -----------------------------------------------------
+
+def host_line() -> str:
+    """The host's CPU and its CPU count: the host-bound steps' times follow
+    them. The CPU is named by the identity fields of ``/proc/cpuinfo``
+    (the card's hosts mask the model name: family, model and clock say
+    more)."""
+    fields = {}
+    for line in open("/proc/cpuinfo"):
+        key, _, val = line.partition(":")
+        fields.setdefault(key.strip(), val.strip())
+    model = "; ".join(f"{k} {fields[k]}" for k in (
+        "model name", "vendor_id", "cpu family", "model", "stepping",
+        "cpu MHz") if k in fields)
+    return f"{model}; {os.cpu_count()} CPUs"
+
+
+def sharded_vs_plain(ref: dict, dev):
+    """(b) The reference phase's card update at the smoke preset repeated
+    by a world-1 ``ShardedWDGAILLearner`` in the NCCL group, from the same
+    weights, reset, expert rows and draws: its metrics and weights against
+    the plain learner's, within the CPU tests' tolerances (a mean over one
+    rank is a copy and a division by 1). The plain update is repeated too:
+    the difference between two runs of it on the card is the floor."""
+    env_cfg, model_cfg, tcfg = ref["cfgs"]
+    pparams, dparams = ref["params"]
+    line = []
+    for cls in (WDGAILLearner, ShardedWDGAILLearner):
+        learner = cls(ref["scene"].to(dev), env_cfg, model_cfg, tcfg,
+                      ref["expert"], policy_params=pparams,
+                      disc_params=dparams)
+        state = learner.init_state(reset_draws=to_device(ref["reset"], dev),
+                                   reset_gnss=ref["gnss"].to(dev))
+        state, metrics = learner.update(
+            state, update_draws_to(ref["draws"], dev))
+        worst_rel = check_losses(f"{cls.__name__} update", metrics,
+                                 ref["metrics"])
+        worst_param = 0.0
+        for got, want in ((state.policy, ref["state"].policy),
+                          (state.disc, ref["state"].disc)):
+            wsd = want.state_dict()
+            for k, v in got.state_dict().items():
+                worst_param = max(worst_param, max_abs_diff(v, wsd[k]))
+        line.append(f"{cls.__name__} {len(metrics)} metrics, worst "
+                    f"relative difference {worst_rel:.3e}, max |dparam| "
+                    f"{worst_param:.3e}")
+        if worst_param > PARAM_ATOL:
+            raise AssertionError(f"{cls.__name__} repeated the update with "
+                                 f"other weights")
+    print(f"  the reference phase's card update (smoke preset, same draws) "
+          f"repeated on the card: " + "; ".join(line)
+          + f" (the world-1 learner in the NCCL group; limit {PARAM_ATOL})",
+          flush=True)
+
+
+def gps_path(scene, dev):
+    """(d) The GPS expert with one env per route on the card for
+    ``GPS_STEPS`` steps: ms per step, each env's route progress (at least
+    ``GPS_MIN_M`` m each); then its first ``GPS_CMP_STEPS`` steps on the
+    card and on the CPU from the same reset and draws (made on the CPU),
+    actions within ``DEMO_TOL``."""
+    cfg = EnvConfig(train=False)
+    n = scene.n_routes
+    routes = torch.arange(n, dtype=torch.int32)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    st, _, _ = reset_batch(scene, cfg, routes.to(dev), gen)
+    ap = make_gps_autopilot(n, dev)
+    best = torch.zeros(n, device=dev)
+    t = time.time()
+    for _ in range(GPS_STEPS):
+        ap, act = gps_autopilot_act(scene, ap, st, gen)
+        st, out = step_batch(scene, cfg, st, act, gen)
+        best = torch.maximum(best, out.info["route_completed_in_m"])
+    dt = synced_s(t)
+    prog = [round(float(v), 1) for v in best]
+    print(f"  GPS expert ({n} envs, one per route, {GPS_STEPS} steps): "
+          f"{dt / GPS_STEPS * 1e3:.3f} ms per step; route progress per env "
+          f"{prog} m (least {GPS_MIN_M} m)", flush=True)
+    if min(prog) < GPS_MIN_M:
+        raise AssertionError("a GPS expert env made too little progress")
+
+    cpu = torch.device("cpu")
+    cpu_scene = scene.to(cpu)
+    g = torch.Generator()
+    g.manual_seed(SEED + 1)
+    reset = draw_reset(cpu_scene, cfg, n, g)
+    gnss = draw_gnss(n, cpu, g)
+    steps = [(draw_step(cpu_scene, cfg, n, g), draw_gps_noise(n, cpu, g))
+             for _ in range(GPS_CMP_STEPS)]
+    acts = []
+    for d, sc in ((dev, scene), (cpu, cpu_scene)):
+        st, _, _ = reset_batch(sc, cfg, routes.to(d), None,
+                               draws=to_device(reset, d),
+                               gnss_noise=gnss.to(d))
+        ap, seq = make_gps_autopilot(n, d), []
+        for sd, noise in steps:
+            ap, act = gps_autopilot_act(sc, ap, st, noise=noise.to(d))
+            st, _ = step_batch(sc, cfg, st, act, None,
+                               **to_device(sd, d)._asdict())
+            seq.append(act.cpu())
+        acts.append(torch.stack(seq))
+    err = max_abs_diff(*acts)
+    print(f"  card vs CPU GPS expert ({n} envs x {GPS_CMP_STEPS} steps, "
+          f"closed loop): max |d action| {err:.3e} (limit {DEMO_TOL})",
+          flush=True)
+    if err > DEMO_TOL:
+        raise AssertionError("card and CPU GPS experts disagree")
+
+
+def start_ranks(tmp: str):
+    """(c) ``SHARD_WORLD`` processes of this script, one per gloo rank,
+    all on the one card; each writes ``rank<r>.json`` and a log. The
+    caller waits for them with ``rank_results``; if it exits first, they
+    are stopped at its exit."""
+    torch.cuda.empty_cache()
+    procs = []
+    for r in range(SHARD_WORLD):
+        log = open(os.path.join(tmp, f"rank{r}.log"), "w")
+        procs.append((subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--sharded-rank",
+             str(r), tmp], stdout=log, stderr=subprocess.STDOUT), log))
+    atexit.register(stop_ranks, procs)
+    return procs
+
+
+def stop_ranks(procs) -> None:
+    """Kills every rank still running and closes the logs."""
+    for p, log in procs:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+        log.close()
+
+
+def _digests(state) -> dict:
+    """sha256 of every replicated leaf of a ``LearnerState``: both nets,
+    both Adam states (moments and counts), the reward statistics, the BC
+    weight and the update counter."""
+    saved = ckpt_mod.to_saved(state)
+    out = {}
+
+    def walk(v, path):
+        if isinstance(v, dict):
+            for k in sorted(v):
+                walk(v[k], f"{path}/{k}")
+        elif isinstance(v, list):
+            for i, x in enumerate(v):
+                walk(x, f"{path}[{i}]")
+        elif isinstance(v, torch.Tensor):
+            out[path] = hashlib.sha256(
+                v.reshape(-1).contiguous().view(torch.uint8).numpy()
+                .tobytes()).hexdigest()
+        else:
+            out[path] = repr(v)
+
+    for f in ("policy", "policy_opt", "disc", "disc_opt", "reward_rms",
+              "gail_gamma", "update_i"):
+        walk(saved[f], f)
+    return out
+
+
+def sharded_rank(rank: int, tmp: str) -> int:
+    """One rank of (c): a ``ShardedWDGAILLearner`` at the reference widths
+    (``SHARD_WORLD`` envs, one per rank, ``SHARD_STEPS`` steps, an expert
+    buffer of the scripted expert's first ``SHARD_DEMO_STEPS`` steps on 2
+    routes, every row kept) over gloo with CUDA tensors: two updates and
+    the replicated leaves' digests, then (rank 1) the first policy weight
+    moved by 1 and one more update. Counts each ``all_reduce`` and its
+    bytes, B1's launches in the updates, and times ``all_reduce`` of a
+    buffer the policy's size once the main process has written
+    ``GO_FILE`` (it runs the earlier phases meanwhile)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    parent, t0 = os.getppid(), time.time()
+    dist.init_process_group("gloo", init_method=f"file://{tmp}/store",
+                            rank=rank, world_size=SHARD_WORLD)
+    try:
+        preset = make_presets()["reference"]
+        env_cfg, model_cfg = preset["env"], preset["model"]
+        tcfg = dataclasses.replace(
+            preset["train"], n_envs=SHARD_WORLD,
+            num_steps=SHARD_WORLD * SHARD_STEPS, mini_batch_size=SHARD_MB,
+            ppo_epoch=SHARD_PPO_EPOCHS, gail_batch_size=SHARD_MB,
+            gail_pre_epoch=2, gail_epoch=1, gail_thre=2, routes=(0, 1),
+            gail_norm_reward=True)
+        scene = make_benchmark_scene(**preset["scene"], device=dev)
+        demos = generate_demos(scene, train_mod.demo_config(env_cfg),
+                               train_mod._generator(dev, train_mod.DEMO_SEED),
+                               [0, 1], SHARD_DEMO_STEPS)
+        demos = dataclasses.replace(demos,
+                                    valid=torch.ones_like(demos.valid))
+        expert = build_expert_buffer(scene, env_cfg, demos)
+        learner = ShardedWDGAILLearner(scene, env_cfg, model_cfg, tcfg,
+                                       expert)
+        state = learner.init_state()
+        policy_bytes = sum(p.numel() * 4 for p in state.policy.parameters())
+        calls = []
+        real = dist.all_reduce
+
+        def counted(t, *args, **kwargs):
+            calls.append(t.numel() * t.element_size())
+            return real(t, *args, **kwargs)
+
+        dist.all_reduce = counted
+        torch.cuda.synchronize()
+        setup_s = time.time() - t0
+        bev_cuda.LIB.launches = 0
+        out = dict(rank=rank, setup_s=setup_s, policy_bytes=policy_bytes,
+                   expert_rows=learner.expert.size, metrics=[], update_s=[],
+                   calls=[])
+        for i in range(3):
+            if i == 2:
+                out["digests2"] = _digests(state)
+                if rank == 1:
+                    with torch.no_grad():
+                        next(state.policy.parameters()).add_(1.0)
+                out["digests_bad"] = _digests(state)
+            n_calls, t = len(calls), time.time()
+            state, metrics = learner.update(state)
+            torch.cuda.synchronize()
+            out["update_s"].append(time.time() - t)
+            out["calls"].append(calls[n_calls:])
+            out["metrics"].append({k: float(v) for k, v in metrics.items()})
+        out["digests_bad2"] = _digests(state)
+        out["b1"] = bev_cuda.LIB.launches
+        dist.all_reduce = real
+        # the main process times nothing until every rank has written this
+        open(os.path.join(tmp, f"{UPDATED_FILE}{rank}"), "w").close()
+        # time the all-reduce only once the main process waits for it (and
+        # give up if it has gone)
+        go = os.path.join(tmp, GO_FILE)
+        while not os.path.exists(go):
+            if os.getppid() != parent:
+                return 1
+            time.sleep(0.05)
+        buf = torch.zeros(policy_bytes // 4, device=dev)
+        ms = []
+        for i in range(7):
+            torch.cuda.synchronize()
+            t = time.time()
+            dist.all_reduce(buf)
+            torch.cuda.synchronize()
+            if i >= 2:
+                ms.append((time.time() - t) * 1e3)
+        out["ar_ms"] = ms
+        with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
+            json.dump(out, f)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def wait_updated(procs, tmp: str) -> None:
+    """Waits until every rank of (c) has written ``UPDATED_FILE`` after its
+    updates, or has exited, or ``SHARD_TIMEOUT_S`` has passed: no rank
+    then shares the card and the host with a timed phase (it waits for
+    ``GO_FILE``, asleep). Prints the wait."""
+    t = time.time()
+    while time.time() - t < SHARD_TIMEOUT_S and any(
+            p.poll() is None and not os.path.exists(
+                os.path.join(tmp, f"{UPDATED_FILE}{r}"))
+            for r, (p, _) in enumerate(procs)):
+        time.sleep(0.05)
+    print(f"  waited {time.time() - t:.2f} s for the world-{SHARD_WORLD} "
+          f"ranks' updates to end", flush=True)
+
+
+def rank_results(procs, tmp: str):
+    """Waits for the ranks (at most ``SHARD_TIMEOUT_S`` s), kills any that
+    is left, and returns their results; raises if a rank failed."""
+    deadline = time.time() + SHARD_TIMEOUT_S
+    try:
+        for p, _ in procs:
+            p.wait(timeout=max(deadline - time.time(), 1.0))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        stop_ranks(procs)
+    bad = [r for r, (p, _) in enumerate(procs) if p.returncode != 0]
+    for r in bad:
+        tail = open(os.path.join(tmp, f"rank{r}.log")).read()[-3000:]
+        print(f"  rank {r} exited {procs[r][0].returncode}:\n{tail}",
+              flush=True)
+    if bad:
+        raise AssertionError(f"sharded ranks {bad} failed")
+    return [json.load(open(os.path.join(tmp, f"rank{r}.json")))
+            for r in range(len(procs))]
+
+
+def check_ranks(res) -> int:
+    """(c)'s checks: after two updates every replicated leaf bitwise equal
+    on both ranks, the metrics equal, the perturbed weight still apart
+    after an update (the gradients are averaged, not the weights); prints
+    the all-reduces per update, their bytes and ms. Returns B1's launches
+    of both ranks."""
+    r0, r1 = res
+    if r0["digests2"] != r1["digests2"]:
+        diff = [k for k in r0["digests2"]
+                if r0["digests2"][k] != r1["digests2"][k]]
+        raise AssertionError(f"replicas differ after two updates: {diff[:5]}")
+    if r0["metrics"][:2] != r1["metrics"][:2]:
+        raise AssertionError("the ranks' metrics differ")
+    bad = [k for k in r0["digests_bad"]
+           if r0["digests_bad"][k] != r1["digests_bad"][k]]
+    apart = [k for k in bad if r0["digests_bad2"][k] != r1["digests_bad2"][k]]
+    pb = r0["policy_bytes"]
+    per = [sum(1 for b in c if b == pb) for c in r0["calls"]]
+    ms = sorted(r0["ar_ms"])
+    print(f"  world {SHARD_WORLD} over gloo with CUDA tensors on one card "
+          f"(reference widths, {SHARD_WORLD} envs x {SHARD_STEPS} steps, "
+          f"expert {r0['expert_rows']} + {r1['expert_rows']} rows): set-up "
+          f"{r0['setup_s']:.1f} / {r1['setup_s']:.1f} s, updates "
+          f"{[round(x, 3) for x in r0['update_s']]} s; all-reduces per "
+          f"update {[len(c) for c in r0['calls']]}, of the policy's "
+          f"gradients {per} ({pb} bytes each, median {ms[len(ms) // 2]:.3f} "
+          f"ms, {pb / ms[len(ms) // 2] / 1e6:.2f} GB/s); replicated leaves "
+          f"equal after 2 updates: {len(r0['digests2'])} of "
+          f"{len(r0['digests2'])}; metrics equal on both ranks; rank 1's "
+          f"perturbed weight {bad} still apart after an update: "
+          f"{apart == bad}; B1 launches {r0['b1']} + {r1['b1']}", flush=True)
+    if len(bad) != 1 or apart != bad:
+        raise AssertionError("the perturbed replica did not stay apart")
+    if max(per) > 40 or not min(per):
+        raise AssertionError(f"policy all-reduces per update {per}")
+    if r0["b1"] != 3 * (SHARD_STEPS + 1) or r1["b1"] != r0["b1"]:
+        raise AssertionError("B1 was not launched once per render in the "
+                             "ranks' updates")
+    return r0["b1"] + r1["b1"]
+
+
+def sharded_path(scene, ref: dict, dev, procs, tmp: str) -> int:
+    """The sharded phase: (b) the world-1 learner against the plain one,
+    (d) the GPS expert, then (c): the gloo ranks (started before the
+    reference phase, so that their set-up and updates run beside it) are
+    told to time their all-reduce, waited for and checked. Returns B1's
+    launches of (c)'s updates."""
+    try:
+        t = time.time()
+        sharded_vs_plain(ref, dev)
+        progress("sharded (b) world 1 vs plain", t)
+        t = time.time()
+        gps_path(scene, dev)
+        progress("sharded (d) GPS expert", t)
+    finally:
+        t = time.time()
+        open(os.path.join(tmp, GO_FILE), "w").close()
+        res = rank_results(procs, tmp)
+    launches = check_ranks(res)
+    progress("sharded (c) world 2 (waited)", t)
+    return launches
+
+
+class CollectiveTimer:
+    """Inside ``with``, every ``all_mean`` call that the PPO and critic
+    steps and the metrics make over a process group records CUDA events
+    around it (the flat copy, the ``all_reduce`` and the split; the two
+    advantage moments' ``pmean`` calls are not counted)."""
+
+    MODS = (ppo_mod, wdgail_mod, learner_mod)
+
+    def __init__(self):
+        self.events, self._saved = [], []
+
+    def __enter__(self):
+        for mod in self.MODS:
+            fn = mod.all_mean
+            self._saved.append((mod, fn))
+
+            def timed(tensors, group, fn=fn):
+                if group is None:
+                    return fn(tensors, group)
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                out = fn(tensors, group)
+                end.record()
+                self.events.append((start, end))
+                return out
+            mod.all_mean = timed
+        return self
+
+    def __exit__(self, *exc):
+        for mod, fn in self._saved:
+            mod.all_mean = fn
+        self._saved.clear()
+
+    def take(self):
+        """(calls, CUDA-event ms summed over them), then cleared."""
+        torch.cuda.synchronize()
+        ms = sum(s.elapsed_time(e) for s, e in self.events)
+        n = len(self.events)
+        self.events.clear()
+        return n, ms
+
+
+def shard_cost() -> int:
+    """``--shard-cost``: what the world-1 ``ShardedWDGAILLearner`` in an
+    NCCL group adds to a reference-preset update (10 envs x 720 steps),
+    against the plain ``WDGAILLearner``, side by side in one process. Both
+    take the train bev phase's expert buffer (the scripted expert's
+    ``DEMO_STEPS`` steps on ``TRAIN_ROUTES``) and start from the same
+    weights and reset; after one warm-up update each, updates run in the
+    order plain, sharded, sharded, plain: wall s and the ``PartTimer``
+    split of each, and for the sharded ones the calls and CUDA-event ms of
+    ``all_mean`` inside the update (``CollectiveTimer``). Then
+    ``all_mean`` of tensors shaped like the policy's and the critic's
+    gradients alone, ms per call (CUDA events)."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()[0]
+    print(f"[shard_cost] device {torch.cuda.get_device_name(0)} | "
+          f"nvidia-smi: {smi} | host {host_line()}", flush=True)
+    cuda_build.build_all(KERNEL_SOURCES, {})
+    preset = make_presets()["reference"]
+    env_cfg, model_cfg = preset["env"], preset["model"]
+    tcfg = dataclasses.replace(preset["train"], routes=TRAIN_ROUTES,
+                               eval_route=TRAIN_EVAL_ROUTE)
+    scene = make_benchmark_scene(**preset["scene"], device=dev)
+    t = time.time()
+    demos = generate_demos(scene, train_mod.demo_config(env_cfg),
+                           train_mod._generator(dev, train_mod.DEMO_SEED),
+                           tcfg.routes, DEMO_STEPS)
+    expert = build_expert_buffer(scene, env_cfg, demos,
+                                 max_size=train_mod.EXPERT_MAX_ROWS)
+    print(f"  expert buffer {expert.size} rows ({synced_s(t):.1f} s)",
+          flush=True)
+    group_dir = tempfile.TemporaryDirectory()
+    dist.init_process_group("nccl", init_method=f"file://{group_dir.name}"
+                            "/store", rank=0, world_size=1)
+    try:
+        runs = {}
+        for cls in (WDGAILLearner, ShardedWDGAILLearner):
+            learner = cls(scene, env_cfg, model_cfg, tcfg, expert)
+            runs[cls] = [learner, learner.init_state()]
+        timer, coll = PartTimer(), CollectiveTimer()
+        total = tcfg.n_envs * tcfg.steps_per_env
+        n_mb_ppo = tcfg.ppo_epoch * (total // tcfg.mini_batch_size)
+        walls = {WDGAILLearner: [], ShardedWDGAILLearner: []}
+        order = (WDGAILLearner, ShardedWDGAILLearner, WDGAILLearner,
+                 ShardedWDGAILLearner, ShardedWDGAILLearner, WDGAILLearner)
+        with timer, coll:
+            for i, cls in enumerate(order):
+                learner, state = runs[cls]
+                torch.cuda.synchronize()
+                t = time.time()
+                state, _ = learner.update(state)
+                wall = synced_s(t)
+                runs[cls][1] = state
+                parts = timer.ms()
+                n_coll, coll_ms = coll.take()
+                n_epochs = wdgail_mod.warmup_epochs(tcfg, state.update_i)
+                n_mb_disc = n_epochs * (min(learner.expert.size, total)
+                                        // tcfg.gail_batch_size)
+                tag = "warm-up" if i < 2 else "timed"
+                if i >= 2:
+                    walls[cls].append(wall)
+                print(f"  {cls.__name__} update {state.update_i} ({tag}): "
+                      f"wall {wall:.3f} s; " + ", ".join(
+                          f"{k} {v:.1f} ms" for k, v in parts.items())
+                      + f"; disc_update {parts['disc_update'] / n_mb_disc:.3f}"
+                      f" ms per minibatch ({n_mb_disc}), ppo_update "
+                      f"{parts['ppo_update'] / n_mb_ppo:.3f} ms per "
+                      f"minibatch ({n_mb_ppo}); all_mean {n_coll} calls, "
+                      f"{coll_ms:.1f} ms", flush=True)
+        group = dist.group.WORLD
+        for name, net in (("policy", runs[WDGAILLearner][1].policy),
+                          ("critic", runs[WDGAILLearner][1].disc)):
+            grads = [torch.randn_like(p) for p in net.parameters()]
+            nbytes = sum(g.numel() * 4 for g in grads)
+            ms = cuda_ms(lambda: all_mean(grads, group), iters=20)
+            print(f"  all_mean of the {name}'s gradients alone "
+                  f"({len(grads)} tensors, {nbytes} bytes): {ms:.3f} ms per "
+                  f"call", flush=True)
+        plain, sharded = walls[WDGAILLearner], walls[ShardedWDGAILLearner]
+        print(f"[shard_cost] reference-preset update, timed: plain "
+              f"{[round(x, 3) for x in plain]} s, world-1 sharded "
+              f"{[round(x, 3) for x in sharded]} s; sharded - plain "
+              f"{sum(sharded) / len(sharded) - sum(plain) / len(plain):.3f}"
+              f" s | {smi}", flush=True)
+    finally:
+        dist.destroy_process_group()
+        group_dir.cleanup()
+    return 0
+
+
 def kernel_line(name, source, replaces, launches, err, times):
     k_ms, p_ms, b_ms, b_by = times
     return {
@@ -2372,6 +2935,8 @@ def main() -> int:
     ).stdout.strip().splitlines()[0]
     kind = torch.cuda.get_device_name(0)
     print(f"[chip_smoke] device {kind} | nvidia-smi: {smi}", flush=True)
+    host = host_line()
+    print(f"[chip_smoke] host {host}", flush=True)
     progress("device", t)
 
     t = time.time()
@@ -2437,6 +3002,13 @@ def main() -> int:
     err6 = max(err6, err_t)
     progress("kernel_vs_plain bev6", t)
 
+    # --- the world-2 ranks of the sharded phase start now: their set-up
+    # and updates run beside the reference phase (whose card-vs-CPU checks
+    # are correctness gates; their times are not end-to-end metrics), and
+    # the timed phases wait for their updates to end ---
+    shard_dir = tempfile.TemporaryDirectory()
+    procs = start_ranks(shard_dir.name)
+
     # --- end to end against the CPU (plain renderers, float32 model) ---
     t = time.time()
     quiet = dict(gnss_noise_deg=0.0, random_restart_prob=0.0)
@@ -2444,9 +3016,10 @@ def main() -> int:
                 SEED)
     card_vs_cpu(scene, dataclasses.replace(env6_cfg, **quiet), (6, w, w),
                 SEED + 1)
-    train_card_vs_cpu(SEED + 2)
+    ref = train_card_vs_cpu(SEED + 2)
     demos_card_vs_cpu(SEED + 3, dev)
     progress("reference", t)
+    wait_updated(procs, shard_dir.name)
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
@@ -2456,8 +3029,10 @@ def main() -> int:
     net = init_policy(model_cfg, (3, w, w), seed=SEED, device=dev)
     launches, start = drive_path(scene, env_cfg, net, gen, routes,
                                  bev_cuda.LIB)
-    breakdown(scene, env_cfg, net, gen, start,
-              bev_cuda.render_bev_cuda_batch)
+    marker = breakdown(scene, env_cfg, net, gen, start,
+                       bev_cuda.render_bev_cuda_batch)["env step"]
+    print(f"[chip_smoke] host speed marker: bev env step at {ROLL_ENVS} "
+          f"envs {marker:.3f} ms", flush=True)
 
     # --- the bev6 path with traffic: evaluation, rollout, breakdown ---
     net6 = init_policy(model_cfg, (6, w, w), seed=SEED, device=dev)
@@ -2466,10 +3041,15 @@ def main() -> int:
     breakdown(scene, env6_cfg, net6, gen, start6,
               bev6_cuda.render_bev6_cuda_batch)
 
-    # --- the training path: train.run on the bev path ---
+    # --- the training path: train.run on the bev path, sharded over a
+    # world-1 NCCL group (kept for the sharded phase's world-1 check) ---
     t = time.time()
-    launches += train_path(env_cfg, model_cfg, preset["train"], preset,
-                           dev)
+    group_dir = tempfile.TemporaryDirectory()
+    dist.init_process_group("nccl", init_method=f"file://{group_dir.name}"
+                            "/store", rank=0, world_size=1)
+    tcfg = dataclasses.replace(preset["train"], routes=TRAIN_ROUTES,
+                               eval_route=TRAIN_EVAL_ROUTE)
+    launches += train_path(env_cfg, model_cfg, tcfg, preset, dev)
     progress("train bev", t)
 
     # --- the demo-file and BC recipe: export, BC, WDGAIL, evaluation ---
@@ -2493,6 +3073,14 @@ def main() -> int:
     err6 = max(err6, err_sa)
     progress("options", t)
 
+    # --- more than one rank: world 1 vs plain, world 2, the GPS expert ---
+    t = time.time()
+    launches += sharded_path(scene, ref, dev, procs, shard_dir.name)
+    dist.destroy_process_group()
+    group_dir.cleanup()
+    shard_dir.cleanup()
+    progress("sharded", t)
+
     torch.cuda.synchronize()
     print(json.dumps({"kernels": [
         kernel_line("bev_raster", "gail_carla_tpu_torch/csrc/bev_raster.cu",
@@ -2503,7 +3091,8 @@ def main() -> int:
                     "gail_carla_tpu/ops/bev6_pallas.py:30", launches6, err6,
                     b2_times),
     ]}), flush=True)
-    print(f"[chip_smoke] total {time.time() - T0:.2f}s", flush=True)
+    print(f"[chip_smoke] total {time.time() - T0:.2f}s | host {host} | "
+          f"bev env step at {ROLL_ENVS} envs {marker:.3f} ms", flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
@@ -2513,4 +3102,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--sharded-rank"]:
+        sys.exit(sharded_rank(int(sys.argv[2]), sys.argv[3]))
+    if sys.argv[1:2] == ["--shard-cost"]:
+        sys.exit(shard_cost())
     sys.exit(main())

@@ -1,1 +1,2 @@
-"""Scripted drivers: PID controllers and the LocalPlanner."""
+"""Scripted drivers: PID controllers, the LocalPlanner and the GPS-space
+expert."""

@@ -7,6 +7,8 @@ built on the CPU); the host loop applies the warm-up epoch count and
 carries the ``LearnerState``. The policy and the critic are ``nn.Module``s
 that the update changes in place; their optimizer states are plain
 tensors. Every draw of an update can be injected through ``UpdateDraws``.
+A process group, where the JAX package takes an ``axis_name``, makes the
+update data-parallel over its ranks (``parallel/mesh.py``).
 """
 from __future__ import annotations
 
@@ -31,6 +33,7 @@ from gail_carla_tpu_torch.models.discriminator import (
 from gail_carla_tpu_torch.models.policy import PolicyNet
 from gail_carla_tpu_torch.ops.gae import compute_returns
 from gail_carla_tpu_torch.ops.state_obs import STATE_OBS_DIM
+from gail_carla_tpu_torch.parallel.collectives import all_mean
 from gail_carla_tpu_torch.sim.env import (
     RenderState, ResetDraws, StepDraws, reset_batch,
 )
@@ -96,7 +99,9 @@ class WDGAILLearner:
     are drawn with numpy from ``tcfg.seed``. At ``obs_mode="state"`` only
     ``algo="ppo"`` trains: the reference's critic cannot take state obs
     (``models/discriminator.py::STATE_OBS_ERROR``), so ``"wdgail"``
-    raises here."""
+    raises here. With a process ``group`` the reward scale's moments, both
+    updates' gradients and the metrics are averaged over its ranks; with
+    none every result is this process's alone."""
 
     def __init__(
         self,
@@ -109,7 +114,9 @@ class WDGAILLearner:
         store_obs: bool = True,
         policy_params: Optional[Mapping] = None,
         disc_params: Optional[Mapping] = None,
+        group=None,
     ):
+        self.group = group
         self.scene = scene
         self.env_cfg = env_cfg
         self.model_cfg = model_cfg
@@ -197,7 +204,8 @@ class WDGAILLearner:
             for t in range(shifted.shape[0]):
                 rets[t] = returns_acc * tcfg.gamma + shifted[t]
                 returns_acc = rets[t] * rollout.masks[t + 1]
-            reward_rms = rms_mod.update_scale(reward_rms, rets.reshape(-1))
+            reward_rms = rms_mod.update_scale(reward_rms, rets.reshape(-1),
+                                              self.group)
             shifted = torch.clamp(shifted / (reward_rms.std + 1e-8),
                                   -10.0, 10.0)
         return shifted, reward_rms, returns_acc
@@ -236,7 +244,8 @@ class WDGAILLearner:
                 policy_idx=d.val_pre)
             disc_opt, disc_aux = wdgail_mod.disc_update(
                 scene, env_cfg, tcfg, state.disc, self.disc_optimizer,
-                disc_opt, rollout, self.expert, gen, n_epochs, d.disc)
+                disc_opt, rollout, self.expert, gen, n_epochs, d.disc,
+                group=self.group)
             post = wdgail_mod.validation_wd(
                 scene, env_cfg, state.disc, rollout, self.expert_val, gen,
                 policy_idx=d.val_post)
@@ -258,6 +267,7 @@ class WDGAILLearner:
             state.policy_opt, rollout, returns, gen, state.gail_gamma,
             self.expert if bc_active else None,
             perms=d.ppo_perms, expert_idx=d.ppo_expert_idx,
+            group=self.group,
         )
 
         new_state = dataclasses.replace(
@@ -289,4 +299,10 @@ class WDGAILLearner:
             "gail_reward_mean": torch.mean(rollout.gail_rewards),
             "disc/reward_rms_std": reward_rms.std,
         })
+        if self.group is not None:
+            # the metrics averaged over the ranks (float32, as pmean
+            # divides an integer count too)
+            out = dict(zip(out, all_mean(
+                [torch.as_tensor(v, dtype=torch.float32, device=self.device)
+                 for v in out.values()], self.group)))
         return new_state, out

@@ -6,7 +6,10 @@ Advantages are normalised over the whole buffer; ``ppo_epoch`` epochs of
 shuffled minibatches follow, one Python iteration per minibatch in place
 of the ``lax.scan``. The action loss is blended with a BC term weighted by
 ``gail_gamma``, on one fresh random expert batch per minibatch. Entropy is
-logged but is not part of the loss, as in the reference.
+logged but is not part of the loss, as in the reference. With a process
+group (data parallelism over ranks) the advantage moments and every
+step's gradients are averaged across the ranks, so each replica applies
+the same step.
 """
 from __future__ import annotations
 
@@ -20,6 +23,7 @@ from gail_carla_tpu_torch.algo.buffers import (
 from gail_carla_tpu_torch.algo.optim import AdamState, ClipAdam
 from gail_carla_tpu_torch.config import EnvConfig, TrainConfig
 from gail_carla_tpu_torch.models import policy as policy_mod
+from gail_carla_tpu_torch.parallel.collectives import all_mean, pmean
 
 AUX_KEYS = ("value_loss", "action_loss", "gail_action_loss", "bc_loss",
             "dist_entropy")
@@ -62,12 +66,16 @@ def ppo_update(
     expert: Optional[ExpertBuffer] = None,
     perms: Optional[torch.Tensor] = None,
     expert_idx: Optional[torch.Tensor] = None,
+    group=None,
 ):
     """Updates ``net``'s parameters in place; returns (opt_state, aux),
     the aux averaged over the minibatches. ``perms`` (ppo_epoch, n_mb*mb)
     holds each epoch's shuffled rows and ``expert_idx`` (ppo_epoch*n_mb,
     mb) each minibatch's expert rows; ``generator`` draws what is not
-    given."""
+    given. With ``group`` the advantage moments and the gradients are
+    averaged over its ranks (the gradients before the optimizer's step,
+    so the global-norm clip sees the mean gradient, as optax does after
+    ``pmean``); the aux stays this rank's."""
     T, N = rollout.T, rollout.N
     total = T * N
     mb = tcfg.mini_batch_size
@@ -76,8 +84,8 @@ def ppo_update(
 
     values = rollout.values[:-1]
     adv = returns - values
-    adv_mean = torch.mean(adv)
-    adv_sq = torch.mean((adv - adv_mean) ** 2)
+    adv_mean = pmean(torch.mean(adv), group)
+    adv_sq = pmean(torch.mean((adv - adv_mean) ** 2), group)
     adv = (adv - adv_mean) / (torch.sqrt(adv_sq) + 1e-5)
 
     adv_f = adv.reshape(-1)
@@ -127,7 +135,7 @@ def ppo_update(
         value_loss = 0.5 * torch.mean(torch.maximum(v_losses, v_losses_clip))
 
         total_loss = value_loss * tcfg.value_loss_coef + action_loss
-        grads = torch.autograd.grad(total_loss, params)
+        grads = all_mean(torch.autograd.grad(total_loss, params), group)
         opt_state = optimizer.step(params, grads, opt_state)
         auxs.append(torch.stack([
             value_loss, action_loss, gail_action_loss, bc_loss,

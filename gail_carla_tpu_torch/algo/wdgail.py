@@ -11,6 +11,10 @@ warm-up schedule of ``tools/learn.py:144-209`` in the reference).
 - relabel: gail_reward = softplus(D) (== -log(1 - sigmoid(D))).
 - validation WD: the tanh-D gap between a held-out expert buffer and
   rollout samples, before and after the critic's epochs.
+
+With a process group (data parallelism over ranks) ``disc_update``
+averages each step's gradients across the ranks; the gradient penalty
+stays each rank's own.
 """
 from __future__ import annotations
 
@@ -25,6 +29,7 @@ from gail_carla_tpu_torch.algo.optim import AdamState, ClipAdam
 from gail_carla_tpu_torch.algo.ppo import draw_perms
 from gail_carla_tpu_torch.config import EnvConfig, TrainConfig
 from gail_carla_tpu_torch.models import discriminator as disc_mod
+from gail_carla_tpu_torch.parallel.collectives import all_mean
 
 AUX_KEYS = ("dis_total_loss", "dis_loss", "dis_gp", "policy_reward",
             "expert_reward", "expert_loss", "policy_loss")
@@ -87,12 +92,14 @@ def disc_update(
     generator: Optional[torch.Generator],
     n_epochs: int,
     draws: Optional[Sequence[DiscEpochDraws]] = None,
+    group=None,
 ):
     """``n_epochs`` critic epochs; updates ``dnet``'s parameters in place
     and returns (opt_state, aux), the aux averaged over the minibatches of
     each epoch and then over the epochs run (zeros when none ran).
     ``draws`` holds one ``DiscEpochDraws`` per epoch; ``generator`` draws
-    them when not given."""
+    them when not given. With ``group`` each step's gradients are
+    averaged over its ranks before the optimizer's step."""
     T, N = rollout.T, rollout.N
     total = T * N
     mb = tcfg.gail_batch_size
@@ -119,7 +126,7 @@ def disc_update(
             gp = disc_mod.grad_penalty(dnet, e, p, tcfg.grad_pen_lambda,
                                        alpha=d.alpha[i].to(dev))
             loss = -wd + gp
-            grads = torch.autograd.grad(loss, params)
+            grads = all_mean(torch.autograd.grad(loss, params), group)
             dopt_state = optimizer.step(params, grads, dopt_state)
             auxs.append(torch.stack([
                 loss, wd, gp, d_p, d_e, torch.tanh(d_e),

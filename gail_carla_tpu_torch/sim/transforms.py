@@ -50,6 +50,25 @@ def location_to_gps(xy: torch.Tensor) -> torch.Tensor:
     return torch.stack([lat, lon], dim=-1)
 
 
+def gps_to_location(latlon: torch.Tensor) -> torch.Tensor:
+    """(lat, lon) degrees -> world metres (route_manipulation.py:32-44),
+    latitude through the stable inverse of the Gudermannian form,
+    ``-2 R artanh(tan(lat pi / 360))``. The divisions by 180 and 360 are
+    multiplies by their float32 reciprocals, as XLA compiles the JAX
+    version inside jit (its one caller, the GPS expert, runs there)."""
+    lat, lon = latlon[..., 0], latlon[..., 1]
+    x = lon * recip_f32(180.0) * (math.pi * EARTH_RADIUS_EQUA)
+    y = (-2.0 * EARTH_RADIUS_EQUA) * torch.atanh(
+        torch.tan(lat * math.pi * recip_f32(360.0)))
+    return torch.stack([x, y], dim=-1)
+
+
+def recip_f32(divisor: float) -> float:
+    """The float32 reciprocal of ``divisor``, which XLA multiplies by in
+    place of a division by the constant inside jit."""
+    return float(np.float32(1.0) / np.float32(divisor))
+
+
 def location_to_gps_np(xy: np.ndarray) -> np.ndarray:
     """World metres -> (lat, lon) degrees, Web-Mercator at the equator,
     in float32 with the op order of the JAX ``location_to_gps``
@@ -84,5 +103,4 @@ def div_const_add(a: torch.Tensor, divisor: float, addend: float):
     float32 reciprocal, fused with the add into one rounding (an FMA).
     Computed in float64, where the product of two float32 values is exact,
     then rounded once to float32."""
-    recip = float(np.float32(1.0) / np.float32(divisor))
-    return (a.double() * recip + addend).float()
+    return (a.double() * recip_f32(divisor) + addend).float()

@@ -19,11 +19,22 @@ Usage (on the card unless ``--device cpu``):
     python -m gail_carla_tpu_torch.train --preset reference
     python -m gail_carla_tpu_torch.train --params params.json
 
+More than one GPU: one process per card, launched by
+``torch.distributed.run`` (NCCL, each rank on ``cuda:LOCAL_RANK``; gloo
+with ``--device cpu``), trains data-parallel over the envs
+(``parallel/mesh.py::ShardedWDGAILLearner``):
+    python -m torch.distributed.run --nproc_per_node=4 \
+        -m gail_carla_tpu_torch.train --preset reference --n-envs 12
+The ranks must divide ``--n-envs`` (the preset's 10 envs do not divide
+over 4), else the run raises. Every rank builds the same expert buffer
+from the same demo seeds and keeps its block; rank 0 alone evaluates,
+logs and writes checkpoints, which hold the unsharded layout and resume
+on one rank or on many.
+
 ``--obs-mode state`` trains with ``algo="ppo"`` only (``--params`` sets
 it): the reference's WDGAIL critic fails on state vectors, and the port
 raises ``NotImplementedError`` for it before the demos. Not ported yet,
-and raising too: the town presets (ROADMAP A7, the town importers) and
-more than one device (A5).
+and raising too: the town presets (ROADMAP A7, the town importers).
 """
 from __future__ import annotations
 
@@ -36,6 +47,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from gail_carla_tpu_torch.algo.buffers import build_expert_buffer
 from gail_carla_tpu_torch.algo.evaluate import evaluate_policy
@@ -44,6 +56,7 @@ from gail_carla_tpu_torch.algo.learner import WDGAILLearner
 from gail_carla_tpu_torch.config import EnvConfig, ModelConfig, TrainConfig
 from gail_carla_tpu_torch.device import resolve_device
 from gail_carla_tpu_torch.models.discriminator import STATE_OBS_ERROR
+from gail_carla_tpu_torch.parallel.mesh import ShardedWDGAILLearner, dp_group
 from gail_carla_tpu_torch.scene.scene import make_benchmark_scene
 from gail_carla_tpu_torch.utils import checkpoint as ckpt_mod
 from gail_carla_tpu_torch.utils.logging import MetricsWriter
@@ -182,21 +195,40 @@ def _profiled_update(learner, state, device, log_dir):
     return state, metrics
 
 
+def _sharding(use_sharding, tcfg) -> tuple:
+    """(sharded, lead): whether the run is data-parallel over the default
+    process group, and whether this process writes the log and the
+    checkpoints (rank 0, or the only process). ``use_sharding=None``
+    shards when the group has more than one rank. Sharding raises without
+    a group or with ranks that do not divide ``n_envs``: where the JAX
+    package falls back to one device, each of N processes here would
+    train a full copy of its own."""
+    up = dist.is_available() and dist.is_initialized()
+    if use_sharding is None:
+        use_sharding = up and dist.get_world_size() > 1
+    if use_sharding:
+        _, _, world = dp_group()
+        if tcfg.n_envs % world:
+            raise ValueError(f"n_envs={tcfg.n_envs} must divide over "
+                             f"{world} ranks")
+    return bool(use_sharding), not up or dist.get_rank() == 0
+
+
 def run(env_cfg, model_cfg, tcfg, scene_kwargs, demo_steps,
         max_updates=None, log_dir="runs/wdgail", ckpt_dir=None,
         use_sharding=None, profile=False, demo_obey_signals=False,
         eval_all_routes=False, ckpt_keep=2, init_params=None,
         eval_seeds=1, demo_tree=None, eval_chunk=0, device="cuda"):
     """Train as ``gail_carla_tpu/train.py::run`` does; returns (the last
-    ``LearnerState``, the last update's metrics with the eval metrics)."""
-    if use_sharding:
-        raise NotImplementedError(
-            "training on more than one device is not ported yet "
-            "(ROADMAP A5)")
+    ``LearnerState``, the last update's metrics with the eval metrics).
+    Under an initialised process group ``use_sharding`` (default: when
+    it has more than one rank) trains data-parallel; the state returned
+    is then this rank's."""
     if env_cfg.obs_mode == "state" and tcfg.algo != "ppo":
         # the reference fails at its first critic update; refuse before
         # the demos are paid for
         raise NotImplementedError(STATE_OBS_ERROR)
+    sharded, lead = _sharding(use_sharding, tcfg)
     dev = resolve_device(device)
     scene = make_scene(scene_kwargs, dev)
 
@@ -214,7 +246,9 @@ def run(env_cfg, model_cfg, tcfg, scene_kwargs, demo_steps,
         expert_val = expert_buffer_from_tree(demo_tree, [tcfg.eval_route],
                                              n_channels=n_ch, device=dev)
     else:
-        # expert demos on the device (train + held-out validation)
+        # expert demos on the device (train + held-out validation), the
+        # same on every rank (fixed seeds); a sharded learner keeps its
+        # block
         demo_cfg = demo_config(env_cfg)
         demos = generate_demos(scene, demo_cfg, _generator(dev, DEMO_SEED),
                                tcfg.routes, demo_steps,
@@ -227,49 +261,74 @@ def run(env_cfg, model_cfg, tcfg, scene_kwargs, demo_steps,
                                      max_size=EXPERT_MAX_ROWS)
         expert_val = build_expert_buffer(scene, env_cfg, demos_val,
                                          size=min(VAL_ROWS, expert.size))
-    print(f"expert buffer: {expert.size} transitions "
-          f"(+{expert_val.size} val)", file=sys.stderr)
+    if lead:
+        print(f"expert buffer: {expert.size} transitions "
+              f"(+{expert_val.size} val)", file=sys.stderr)
 
-    learner = WDGAILLearner(scene, env_cfg, model_cfg, tcfg, expert,
-                            expert_val)
+    learner_cls = ShardedWDGAILLearner if sharded else WDGAILLearner
+    learner = learner_cls(scene, env_cfg, model_cfg, tcfg, expert,
+                          expert_val)
     state = learner.init_state()
     if init_params:
         # warm start the POLICY only from a params-only checkpoint
         # (ckpt_dir/best_params, or convert.py's from a JAX one); the
         # critic, optimizers and env states start fresh
         ckpt_mod.restore_checkpoint(init_params, {"params": state.policy})
-        print(f"warm-started policy from {init_params}", file=sys.stderr)
+        if lead:
+            print(f"warm-started policy from {init_params}",
+                  file=sys.stderr)
 
     elapsed0 = 0.0
     best_score = -1.0
     if ckpt_dir and tcfg.resume_training:
         latest = ckpt_mod.latest_checkpoint(ckpt_dir)
         if latest:
-            state, elapsed0 = ckpt_mod.restore_checkpoint(latest, state)
-            print(f"resumed from {latest}", file=sys.stderr)
+            # a checkpoint holds the unsharded layout: a sharded run
+            # restores it whole and keeps its block
+            template = learner.init_full_state() if sharded else state
+            state, elapsed0 = ckpt_mod.restore_checkpoint(latest, template)
+            if sharded:
+                state = learner.local_state(state)
+            if lead:
+                print(f"resumed from {latest}", file=sys.stderr)
         # a resumed run must not clobber ckpt_dir/best with a worse
         # post-resume eval: restore the recorded best score too
         try:
             with open(os.path.join(ckpt_dir, "best_score.json")) as f:
                 best_score = float(json.load(f)["score"])
-            print(f"resumed best score {best_score:.2f}", file=sys.stderr)
+            if lead:
+                print(f"resumed best score {best_score:.2f}",
+                      file=sys.stderr)
         except (OSError, ValueError, KeyError):
             pass
 
     n_updates = tcfg.n_updates if max_updates is None else max_updates
     t0 = time.time() - elapsed0
     eval_metrics, metrics = {}, {}
-    writer = MetricsWriter(log_dir)
+    writer = MetricsWriter(log_dir) if lead else None
+    first = True
     try:
         while state.update_i < n_updates:
-            if profile and state.update_i == 1:
+            if profile and state.update_i == 1 and lead:
                 state, metrics = _profiled_update(learner, state, dev,
                                                   log_dir)
             else:
                 state, metrics = learner.update(state)
             i = state.update_i
+            do_eval = i % tcfg.eval_interval == 0 or first
+            save = ckpt_dir and (i % tcfg.eval_interval == 0
+                                 or i == n_updates)
+            first = False
+            # the unsharded state to save (collective when sharded, so
+            # every rank takes part whenever rank 0 may save)
+            full = state
+            if sharded and (save or (ckpt_dir and do_eval
+                                     and eval_all_routes)):
+                full = learner.global_state(state)
+            if not lead:
+                continue
 
-            if i % tcfg.eval_interval == 0 or not eval_metrics:
+            if do_eval:
                 ev = evaluate_policy(scene, env_cfg, state.policy,
                                      _generator(dev, i),
                                      route_id=tcfg.eval_route,
@@ -288,7 +347,7 @@ def run(env_cfg, model_cfg, tcfg, scene_kwargs, demo_steps,
                     if ckpt_dir and score > best_score:
                         best_score = score
                         ckpt_mod.save_checkpoint(
-                            os.path.join(ckpt_dir, "best"), state,
+                            os.path.join(ckpt_dir, "best"), full,
                             time.time() - t0)
                         # params-only copy, the shape --init-params reads
                         ckpt_mod.save_checkpoint(
@@ -312,13 +371,14 @@ def run(env_cfg, model_cfg, tcfg, scene_kwargs, demo_steps,
                 f"wd {float(metrics['disc/post_val_wd']):.4f}",
                 file=sys.stderr,
             )
-            if ckpt_dir and (i % tcfg.eval_interval == 0 or i == n_updates):
+            if save:
                 ckpt_mod.save_checkpoint(
-                    os.path.join(ckpt_dir, f"update_{i}"), state,
+                    os.path.join(ckpt_dir, f"update_{i}"), full,
                     time.time() - t0)
                 ckpt_mod.prune_checkpoints(ckpt_dir, keep=ckpt_keep)
     finally:
-        writer.close()
+        if writer is not None:
+            writer.close()
     return state, metrics
 
 
@@ -395,6 +455,22 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
+def launch_group(device):
+    """Under ``torch.distributed.run`` (``WORLD_SIZE`` above 1 in the
+    environment) initialise the default process group from the launcher's
+    environment: NCCL with this process on ``cuda:LOCAL_RANK``, or gloo
+    for ``--device cpu``. Returns (the device to run on, whether a group
+    was initialised here)."""
+    dev = resolve_device(device)
+    if int(os.environ.get("WORLD_SIZE", "1")) <= 1 or dist.is_initialized():
+        return dev, False
+    if dev.type == "cuda":
+        dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", "0")))
+        torch.cuda.set_device(dev)
+    dist.init_process_group("nccl" if dev.type == "cuda" else "gloo")
+    return dev, True
+
+
 def main(argv=None):
     args = parse_args(argv)
     preset = make_presets()[args.preset]
@@ -437,18 +513,23 @@ def main(argv=None):
     if args.npc_walkers is not None:
         env_updates["n_npc_walkers"] = args.npc_walkers
     env_cfg = dataclasses.replace(preset["env"], **env_updates)
-    return run(
-        env_cfg, preset["model"], tcfg, preset["scene"],
-        preset["demo_steps"], max_updates=args.max_updates,
-        log_dir=args.log_dir, ckpt_dir=args.ckpt_dir,
-        profile=args.profile, demo_obey_signals=args.compliant_demos,
-        eval_all_routes=args.eval_all_routes,
-        init_params=args.init_params,
-        eval_seeds=args.eval_seeds,
-        demo_tree=args.demo_tree,
-        eval_chunk=args.eval_chunk,
-        device=args.device,
-    )
+    dev, launched = launch_group(args.device)
+    try:
+        return run(
+            env_cfg, preset["model"], tcfg, preset["scene"],
+            preset["demo_steps"], max_updates=args.max_updates,
+            log_dir=args.log_dir, ckpt_dir=args.ckpt_dir,
+            profile=args.profile, demo_obey_signals=args.compliant_demos,
+            eval_all_routes=args.eval_all_routes,
+            init_params=args.init_params,
+            eval_seeds=args.eval_seeds,
+            demo_tree=args.demo_tree,
+            eval_chunk=args.eval_chunk,
+            device=dev,
+        )
+    finally:
+        if launched:
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -1,13 +1,16 @@
 """Running reward statistics: port of
 ``gail_carla_tpu/utils/running_mean_std.py`` (``common/running_mean_std.py``
 of the reference): the Chan et al. parallel-moments update and the clamped
-EMA scale tracker that reward normalisation uses. Single device: the
-moments are the local batch's."""
+EMA scale tracker that reward normalisation uses. With a process group
+(data parallelism over ranks) the batch moments are averaged across the
+ranks first, so every replica folds in the global batch."""
 from __future__ import annotations
 
 import dataclasses
 
 import torch
+
+from gail_carla_tpu_torch.parallel.collectives import all_mean, world_size
 
 
 @dataclasses.dataclass
@@ -29,15 +32,26 @@ def make_rms(shape=(), device="cpu") -> RunningMeanStd:
     )
 
 
-def _batch_moments(batch: torch.Tensor):
-    """Mean, population variance (``jnp.var``) and count over axis 0."""
-    return (batch.mean(dim=0), batch.var(dim=0, unbiased=False),
-            batch.shape[0])
+def _batch_moments(batch: torch.Tensor, group=None):
+    """Mean, population variance (``jnp.var``) and count over axis 0. With
+    ``group`` the moments are those of the batches of all its ranks, in
+    the JAX package's op order: the variance is the averaged ``E[x^2]``
+    less the square of the averaged mean (which cancels where the
+    unsharded ``jnp.var`` does not; kept as the reference has it)."""
+    if group is None:
+        return (batch.mean(dim=0), batch.var(dim=0, unbiased=False),
+                batch.shape[0])
+    sq_mean, batch_mean = all_mean(
+        [torch.mean(batch ** 2, dim=0), batch.mean(dim=0)], group)
+    return (batch_mean, sq_mean - batch_mean ** 2,
+            batch.shape[0] * world_size(group))
 
 
-def update_rms(rms: RunningMeanStd, batch: torch.Tensor) -> RunningMeanStd:
-    """Chan et al. parallel update, the reference's update_from_moments."""
-    batch_mean, batch_var, batch_count = _batch_moments(batch)
+def update_rms(rms: RunningMeanStd, batch: torch.Tensor,
+               group=None) -> RunningMeanStd:
+    """Chan et al. parallel update, the reference's update_from_moments
+    (over the ranks of ``group`` when given)."""
+    batch_mean, batch_var, batch_count = _batch_moments(batch, group)
     delta = batch_mean - rms.mean
     tot = rms.count + batch_count
     new_mean = rms.mean + delta * batch_count / tot
@@ -47,14 +61,16 @@ def update_rms(rms: RunningMeanStd, batch: torch.Tensor) -> RunningMeanStd:
     return RunningMeanStd(mean=new_mean, var=m2 / tot, count=tot)
 
 
-def update_scale(rms: RunningMeanStd, batch: torch.Tensor, ema: float = 0.8,
-                 max_ratio: float = 1.25) -> RunningMeanStd:
+def update_scale(rms: RunningMeanStd, batch: torch.Tensor, group=None,
+                 ema: float = 0.8, max_ratio: float = 1.25
+                 ) -> RunningMeanStd:
     """Robust scale tracker for reward normalisation, not the cumulative
     update: an EMA of the batch std whose step is clamped to the geometric
     trust region ``[std / max_ratio, std * max_ratio]``, so that one
     outlier batch (the critic's warm-up drifts D's level) moves the scale
-    by at most ``max_ratio``. ``count`` keeps accumulating."""
-    batch_mean, batch_var, batch_count = _batch_moments(batch)
+    by at most ``max_ratio``. ``count`` keeps accumulating. The moments
+    are averaged across the ranks of ``group`` as in ``update_rms``."""
+    batch_mean, batch_var, batch_count = _batch_moments(batch, group)
     std = rms.std
     target = ema * std + (1.0 - ema) * torch.sqrt(
         torch.clamp(batch_var, min=0.0))

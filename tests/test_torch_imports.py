@@ -14,9 +14,10 @@ PKG = os.path.join(ROOT, "gail_carla_tpu_torch")
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "gail_carla_tpu",
              "PIL", "threading", "multiprocessing", "concurrent")
 # the port reads and writes PNG files with its own codec (utils/png.py):
-# the card's machine has no imaging package
+# the card's machine has no imaging package; h5py and matplotlib (the
+# host tools export_map and plot_results) are imported inside functions
 BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "gail_carla_tpu",
-           "PIL")
+           "PIL", "h5py", "matplotlib")
 TEXT_SOURCES = (".cu", ".cuh", ".h", ".hpp", ".cpp", ".cc")
 MAX_FILE_BYTES = 200 * 1024
 ENV_API_MODULES = (
@@ -31,6 +32,15 @@ ENV_API_MODULES = (
 )
 # the state-vector observation path (obs_mode="state")
 STATE_MODULES = ("gail_carla_tpu_torch.ops.state_obs",)
+# training on more than one GPU, the GPS expert and the host tools (their
+# h5py and matplotlib are imported inside their functions)
+PARALLEL_AND_TOOL_MODULES = (
+    "gail_carla_tpu_torch.parallel", "gail_carla_tpu_torch.parallel.mesh",
+    "gail_carla_tpu_torch.parallel.collectives",
+    "gail_carla_tpu_torch.agents.gps_autopilot",
+    "gail_carla_tpu_torch.tools.export_map",
+    "gail_carla_tpu_torch.tools.plot_results",
+)
 
 
 def _port_files():
@@ -82,9 +92,11 @@ def test_port_sources_import_no_jax():
 def test_port_imports_with_jax_blocked():
     """Import every port module and chip_smoke (without running it) in a
     fresh interpreter where JAX and the JAX package cannot be imported;
-    the env API, the policy benchmarks and the state observation are
-    among them."""
-    assert set(ENV_API_MODULES + STATE_MODULES) <= set(_port_modules())
+    the env API, the policy benchmarks, the state observation, the
+    data-parallel learner, the GPS expert and the host tools are among
+    them."""
+    assert set(ENV_API_MODULES + STATE_MODULES
+               + PARALLEL_AND_TOOL_MODULES) <= set(_port_modules())
     code = "\n".join([
         "import importlib, sys",
         f"for name in {BLOCKED!r}:",

@@ -195,8 +195,9 @@ def test_main_runs_and_resumes_bit_equal(tmp_path):
 
 
 def test_run_refuses_what_is_not_ported(tmp_path):
-    """Town scenes (ROADMAP A7) and more than one device (A5) raise
-    instead of falling back; a demo tree without demos raises instead of
+    """Town scenes (ROADMAP A7) raise instead of falling back; sharded
+    training without an initialised process group raises instead of
+    training on one rank; a demo tree without demos raises instead of
     training on generated ones."""
     smoke = PRESET
     common = (smoke["env"], smoke["model"], smoke["train"])
@@ -210,7 +211,7 @@ def test_run_refuses_what_is_not_ported(tmp_path):
     with pytest.raises(FileNotFoundError, match="no expert steps"):
         train.run(*common, smoke["scene"], 10, device="cpu",
                   demo_tree=str(tmp_path), log_dir=str(tmp_path))
-    with pytest.raises(NotImplementedError, match="A5"):
+    with pytest.raises(RuntimeError, match="initialised torch.distributed"):
         train.run(*common, smoke["scene"], 10, device="cpu",
                   use_sharding=True, log_dir=str(tmp_path))
 
