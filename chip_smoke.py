@@ -99,6 +99,24 @@ the training entry point ``train.run``.
   replica perturbed by 1 stays apart after an update, at most 40 policy
   all-reduces per update; they time the policy's all-reduce once this
   phase waits for them.
+- the ``"town"`` path, the reconstructed towns (the town importers) at
+  the same widths, on a synthetic reference tree that it writes to a
+  temporary directory (``tools/synthetic_town.py``: the 3x3 grid town at
+  90 m blocks as Town01's mask pack with a sidewalk ring, ``TOWN_ROUTES``
+  training routes and a NoCrash pack of bare start/goal pairs; the pack
+  goes through ``h5py`` when it imports, else to the pack reader in
+  memory, and the script prints which): ``make_town_scene`` (build
+  seconds, the table maxima, the blocks' shared bytes), B1 and B2 against
+  their plain versions on the town tables at ``ROLL_ENVS`` envs x 192 px
+  (B2 at 20 + 50 and 100 + 250 actors, walkers on the sidewalk paths),
+  timed, and on a town table whose blocks need more than 48 KB of shared
+  memory (the road's edge serrated, ``SERRATED_ENVS`` envs); a float32
+  bev6 rollout with sidewalk walkers on the card against the CPU; then,
+  with the launch counts set to 0, ``train.run`` at the ``town01``
+  preset (``ModelConfig()``, 10 envs, 192 px; ``TOWN_DEMO_STEPS`` demo
+  steps and episode steps, ``TOWN_STEPS`` steps per env of one update,
+  the evaluation on held-out route 3) and ``run_tier`` on the town's
+  NoCrash suite with the bev6 policy.
 
 Each kernel is checked against its plain version on the same render
 states of the rollout's 256 envs, at W=192 and W=100, with envs placed on
@@ -200,11 +218,14 @@ from gail_carla_tpu_torch.ops.state_obs import (
 )
 from gail_carla_tpu_torch.parallel.collectives import all_mean
 from gail_carla_tpu_torch.parallel.mesh import ShardedWDGAILLearner
+from gail_carla_tpu_torch.scene import h5_maps, mask_geo
+from gail_carla_tpu_torch.scene import segments as seg_mod
 from gail_carla_tpu_torch.scene.routes import generate_routes
 from gail_carla_tpu_torch.scene.scene import build_scene, make_benchmark_scene
 from gail_carla_tpu_torch.scene.town import (
     grid_building_obstacles, make_grid_town,
 )
+from gail_carla_tpu_torch.scene.town_import import make_town_scene
 from gail_carla_tpu_torch.scene.trace import trace_route
 from gail_carla_tpu_torch.sim.collisions import obstacle_collision
 from gail_carla_tpu_torch.sim.dynamics import DEFAULT_VEHICLE, VehicleState
@@ -217,6 +238,7 @@ from gail_carla_tpu_torch.tools import evaluation as evaluation_mod
 from gail_carla_tpu_torch.tools import gen_trajectories as gen_mod
 from gail_carla_tpu_torch.tools import learn_bc as learn_bc_mod
 from gail_carla_tpu_torch.tools import nocrash_bench
+from gail_carla_tpu_torch.tools import synthetic_town
 from gail_carla_tpu_torch.tools.corl_bench import TASK_TYPES
 from gail_carla_tpu_torch.train import make_presets
 from gail_carla_tpu_torch.utils import checkpoint as ckpt_mod
@@ -263,7 +285,7 @@ PEAK_BYTES_PER_S = 3.35e12
 TREE_ROUTES, TREE_STEPS = 10, 16
 BC_EPOCHS = 1
 TREE_UPDATE_STEPS = 16
-TREE_EVAL_STEPS = 60
+TREE_EVAL_STEPS = 30
 RING_STEPS = 22
 CMP_ROUTES, CMP_STEPS = 2, 2
 # the suites phase: steps of each DrivingEnv the registry makes, the
@@ -271,16 +293,16 @@ CMP_ROUTES, CMP_STEPS = 2, 2
 # type and leaderboard benchmark (the tools' 2,400-6,000 cut), the endless
 # expert (envs x at most steps), the card-vs-CPU tier's steps and
 # DrivingEnv's steps
-REGISTRY_STEPS = 3
-VEC_ENVS, VEC_STEPS = 16, 50
-SUITE_STEPS = 5
+REGISTRY_STEPS = 2
+VEC_ENVS, VEC_STEPS = 16, 30
+SUITE_STEPS = 3
 ENDLESS_ENVS, ENDLESS_STEPS = 8, 400
-CMP_TIER_STEPS, CMP_ENV_STEPS = 12, 10
+CMP_TIER_STEPS, CMP_ENV_STEPS = 8, 6
 # the registry's ids driven in the suites phase, one per family; Endless
 # with the short rows of the endless check
 REGISTRY_IDS = ("LeaderBoard-v0", "NoCrash-v2", "CoRL2017-v1",
                 "CoRL2017-v3", "Endless-v0")
-ENDLESS_ROWS = dict(n_rows=6, row_m=60.0)
+ENDLESS_ROWS = dict(n_rows=6, row_m=45.0)
 NOCRASH_IDS = {"empty": "NoCrash-v0", "regular": "NoCrash-v1",
                "dense": "NoCrash-v2", "leaderboard": "NoCrash-v3"}
 CORL_IDS = {t: f"CoRL2017-v{i}" for i, t in enumerate(TASK_TYPES)}
@@ -312,6 +334,19 @@ SHARD_DEMO_STEPS, SHARD_TIMEOUT_S = 48, 240
 # main process that a rank's updates are done
 GO_FILE, UPDATED_FILE = "go", "updated"
 GPS_STEPS, GPS_MIN_M, GPS_CMP_STEPS = 300, 40.0, 50
+# the town phase: the synthetic reference tree (tools/synthetic_town.py:
+# the 3x3 grid town at 90 m blocks as Town01, TOWN_ROUTES training routes
+# of TOWN_ROUTE_M metres, so that the town01 preset's routes 0-2, 4-9 and
+# held-out 3 exist and the expert completes each within TOWN_DEMO_STEPS
+# steps (on the CPU every first episode ended by step 258), and a NoCrash
+# pack of bare start/goal pairs); train.run at the town01 preset cut to
+# TOWN_DEMO_STEPS demo steps per route, episodes of as many steps (the
+# evaluation's cap) and TOWN_STEPS steps per env of one update; the table
+# whose blocks need more than 48 KB (the road layer's edge serrated in
+# SERRATE_PX-pixel checks) at SERRATED_ENVS envs
+TOWN_ROUTES, TOWN_ROUTE_M, TOWN_DEMO_STEPS, TOWN_STEPS = (
+    10, (60.0, 140.0), 280, 64)
+SERRATE_PX, SERRATED_ENVS = 2, 64
 SEED = 0
 T0 = time.time()
 
@@ -485,7 +520,10 @@ def kernel_tensors(scene, ren, prologue, six: bool):
 
 def tile_states(scene, cfg: EnvConfig, ren: RenderState, envs, seed: int):
     """``ren`` with the envs ``envs`` and all their actors placed on tile
-    corners for this width (``ops/bev6.py::place_in_view``)."""
+    corners for this width (``ops/bev6.py::place_in_view``); on a scene
+    without stop signs (a reconstructed town) the envs of the stop-sign
+    kind (j % 4 == 3) stay where they are."""
+    envs = [j for j in envs if scene.ss_n or j % 4 != 3]
     return bev6_plain.place_in_view(
         scene, ren, envs, np.random.default_rng(seed),
         ren.npc_pose.shape[1], ren.walker_pose.shape[1], tiles=cfg)
@@ -2909,6 +2947,228 @@ def shard_cost() -> int:
     return 0
 
 
+# --- the town phase ----------------------------------------------------------
+def town_tree(root: str):
+    """Writes the synthetic reference tree under ``root``; its mask pack
+    goes to an H5 file when ``h5py`` imports here, else it is handed to
+    the port's pack reader in memory (``h5_maps.put_pack``). Returns the
+    reader used."""
+    try:
+        import h5py  # noqa: F401
+    except ImportError:
+        has_h5py = False
+    else:
+        has_h5py = True
+    layers, offset = synthetic_town.write_tree(
+        root, "Town01", TOWN_ROUTES, min_length=TOWN_ROUTE_M[0],
+        max_length=TOWN_ROUTE_M[1], write_h5=has_h5py)
+    if not has_h5py:
+        h5_maps.put_pack("Town01", layers, offset)
+    reader = h5_maps.pack_reader("Town01")
+    print(f"  town tree: h5py {'imports' if has_h5py else 'is missing'}; "
+          f"pack reader {reader}; {TOWN_ROUTES} routes, road layer "
+          f"{layers['road'].shape}", flush=True)
+    return reader
+
+
+def serrated_scene(scene):
+    """``scene`` with its road boundary traced from the pack's road layer
+    with every edge pixel of alternate ``SERRATE_PX``-pixel checks cut
+    away: a toothed road whose cells hold far more boundary edges."""
+    from scipy import ndimage
+
+    pack = h5_maps.read_pack("Town01", ("road",))
+    road = pack["road"] > 0
+    edge = road & ~ndimage.binary_erosion(road)
+    yy, xx = np.mgrid[:road.shape[0], :road.shape[1]]
+    cut = edge & ((yy // SERRATE_PX + xx // SERRATE_PX) % 2 == 0)
+    ab, dmax = mask_geo.mask_boundary_edges(
+        road & ~cut, pack.world_offset, pack.ppm, max_err_px=0.49)
+    gy, gx = scene.cell_bnd.shape[:2]
+    cb, cbn = seg_mod.build_bnd_cells(
+        ab, scene.cell_grid_lo.cpu().numpy(), gy, gx, scene.cell_size, dmax)
+    dev = scene.device
+    return dataclasses.replace(
+        scene, cell_bnd=torch.from_numpy(cb).to(dev),
+        cell_bnd_n=torch.from_numpy(cbn).to(dev), bnd_dmax=dmax)
+
+
+def town_states(scene, cfg: EnvConfig, n: int, seed: int):
+    """bev6 render states of ``n`` envs after 10 rollout steps with the
+    town's traffic (walkers on the sidewalk paths); envs 0-31 moved 2 m
+    before stop lines (the town has no stop signs) with 4 vehicles and 6
+    walkers in view, and envs 32-63 not of the stop-sign kind on tile
+    corners (``ops/bev6.py::place_in_view``)."""
+    dev = scene.device
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    st, met, ren = reset_batch(scene, cfg, torch.arange(
+        n, device=dev) % scene.n_routes, gen)
+    net = init_policy(ModelConfig(), (6, cfg.bev_width, cfg.bev_width),
+                      seed=seed, device=dev)
+    _, _, ren, _, _ = collect_rollout(scene, cfg, net, st, met, ren, gen, 10)
+    ren = bev6_plain.place_in_view(scene, ren, range(0, 32, 2),
+                                   np.random.default_rng(seed), 4, 6,
+                                   view=(6.0, 20.0, 12.0))
+    return tile_states(scene, cfg, ren, range(32, 64), seed + 1)
+
+
+def town_kernels(scene, env_cfg: EnvConfig, env6_cfg: EnvConfig):
+    """B1 and B2 against their plain versions on the town tables (256
+    envs x 192 px; B2 at 20 + 50 and 100 + 250 actors, walkers on the
+    sidewalk paths), timed on them, and on the serrated table whose blocks
+    need more than 48 KB of shared memory. Returns (B1's max abs
+    difference, B2's, B1's town times, B2's town times at 20 + 50)."""
+    w = env_cfg.bev_width
+    print(f"  town tables: Mb {scene.cell_bnd.shape[2]}, Ml "
+          f"{scene.cell_lane.shape[2]}, Mt {scene.cell_tl.shape[2]}, Mh "
+          f"{scene.cell_hard.shape[2]}, sidewalk paths "
+          f"{scene.walk_xy.shape[0]} x {scene.walk_xy.shape[1]}; shared "
+          f"bytes per block: B1 {bev6_cuda.shared_bytes_bev(scene)}, B2 at "
+          f"20 + 50 {bev6_cuda.shared_bytes(scene, 20, 50)}, at 100 + 250 "
+          f"{bev6_cuda.shared_bytes(scene, 100, 250)}", flush=True)
+    err = check_kernel(scene, env_cfg, ROLL_ENVS, SEED + 40)
+    ren = route_poses(scene, ROLL_ENVS, SEED + 41)
+    inp = bev_plain.bev_inputs(scene, ren)
+    cs = (torch.cos(ren.yaw), torch.sin(ren.yaw))
+    err_t, b1_times = time_kernel(
+        "bev_raster town", scene, env_cfg, ren, inp, None, cs,
+        lambda: bev_cuda.render_bev_cuda(scene, env_cfg, ren, *cs),
+        lambda: bev_cuda.render_bev_cuda_batch(scene, env_cfg, ren),
+        lambda: bev_plain.render_bev_plain(env_cfg, inp, scene.bnd_dmax))
+    err = max(err, err_t)
+    err6, b2_times = 0.0, None
+    # one rollout at the dense tier; its first 20 vehicles and 50 walkers
+    # are the regular tier's states
+    dense = town_states(scene, dataclasses.replace(
+        env6_cfg, n_npc_vehicles=100, n_npc_walkers=250), ROLL_ENVS,
+        SEED + 42)
+    for v, wk in ((env6_cfg.n_npc_vehicles, env6_cfg.n_npc_walkers),
+                  (100, 250)):
+        cfg = dataclasses.replace(env6_cfg, n_npc_vehicles=v,
+                                  n_npc_walkers=wk)
+        ren6 = dataclasses.replace(
+            dense, npc_pose=dense.npc_pose[:, :v].contiguous(),
+            walker_pose=dense.walker_pose[:, :wk].contiguous())
+        err6 = max(err6, check_kernel6(scene, cfg, ren6))
+        if b2_times is not None:
+            # the dense tier: checked above, and one launch timed
+            pro6 = bev6_cuda.bev6_prologue(scene, cfg, ren6)
+            ms = graph_ms(lambda: bev6_cuda.render_bev6_cuda(
+                scene, cfg, ren6, *pro6))
+            print(f"  bev6_raster town {v} + {wk} {ROLL_ENVS} envs x "
+                  f"{cfg.bev_width} px: kernel {ms:.4f} ms (graph)",
+                  flush=True)
+            continue
+        inp6 = bev6_plain.bev6_inputs(scene, cfg, ren6)
+        pro6 = bev6_cuda.bev6_prologue(scene, cfg, ren6)
+        err_t, b2_times = time_kernel(
+            f"bev6_raster town {v} + {wk}", scene, cfg, ren6, inp6,
+            bev_tiles.kernel_tables(scene, ren6, inp6), pro6,
+            lambda: bev6_cuda.render_bev6_cuda(scene, cfg, ren6, *pro6),
+            lambda: bev6_cuda.render_bev6_cuda_batch(scene, cfg, ren6),
+            lambda: bev6_plain.render_bev6_plain(cfg, inp6, scene.bnd_dmax))
+        err6 = max(err6, err_t)
+
+    big = serrated_scene(scene)
+    cfg = dataclasses.replace(env6_cfg, n_npc_vehicles=100,
+                              n_npc_walkers=250)
+    b1_bytes = bev6_cuda.shared_bytes_bev(big)
+    b2_bytes = bev6_cuda.shared_bytes(big, 100, 250)
+    print(f"  serrated town table: Mb {big.cell_bnd.shape[2]}; shared bytes "
+          f"per block: B1 {b1_bytes}, B2 at 100 + 250 {b2_bytes} (no opt-in "
+          f"up to {bev_cuda.DEFAULT_SHARED_BYTES})", flush=True)
+    if min(b1_bytes, b2_bytes) <= bev_cuda.DEFAULT_SHARED_BYTES:
+        raise AssertionError("the serrated table does not need more than "
+                             "48 KB per block")
+    err = max(err, check_kernel(big, env_cfg, SERRATED_ENVS, SEED + 43))
+    ren6 = map_state(lambda a: a[:SERRATED_ENVS], dense)
+    err6 = max(err6, check_kernel6(big, cfg, ren6))
+    pro6 = bev6_cuda.bev6_prologue(big, cfg, ren6)
+    ms = graph_ms(lambda: bev6_cuda.render_bev6_cuda(big, cfg, ren6, *pro6))
+    ren = route_poses(big, SERRATED_ENVS, SEED + 45)
+    cs = (torch.cos(ren.yaw), torch.sin(ren.yaw))
+    ms1 = graph_ms(lambda: bev_cuda.render_bev_cuda(big, env_cfg, ren, *cs))
+    print(f"  serrated table at {SERRATED_ENVS} envs x {w} px: B1 "
+          f"{ms1:.4f} ms, B2 at 100 + 250 {ms:.4f} ms per launch (graph)",
+          flush=True)
+    return err, err6, b1_times, b2_times
+
+
+def town_path(env_cfg: EnvConfig, env6_cfg: EnvConfig, dev):
+    """The reconstructed-town path on the synthetic tree: the scene
+    through ``make_town_scene`` (build seconds, table maxima, shared
+    bytes), B1 and B2 against their plain versions on its tables
+    (``town_kernels``), card vs CPU with sidewalk walkers, then with every
+    launch count set to 0: ``train.run`` at the town01 preset
+    (``ModelConfig()`` widths, 10 envs, 192 px) for one update and the
+    evaluation on held-out route 3, and ``run_tier`` on the town's NoCrash
+    suite with the bev6 policy. Returns (B1 launches, B2 launches, B1's
+    and B2's max abs differences)."""
+    preset = make_presets()["town01"]
+    with tempfile.TemporaryDirectory() as tmp:
+        root = os.path.join(tmp, "reference")
+        t = time.time()
+        reader = town_tree(root)
+        with synthetic_town.reference_tree(root, os.path.join(tmp, "cache")):
+            t_scene = time.time()
+            scene = make_town_scene("Town01", device=dev)
+            torch.cuda.synchronize()
+            print(f"  make_town_scene Town01 ({reader} pack): "
+                  f"{time.time() - t_scene:.3f} s, {scene.n_routes} routes, "
+                  f"route_xy {tuple(scene.route_xy.shape)}, cell_bnd "
+                  f"{tuple(scene.cell_bnd.shape)}, cell_hard "
+                  f"{tuple(scene.cell_hard.shape)}, walk_xy "
+                  f"{tuple(scene.walk_xy.shape)}", flush=True)
+            progress("town scene", t)
+            t = time.time()
+            err, err6, _, _ = town_kernels(scene, env_cfg, env6_cfg)
+            progress("town kernels", t)
+            # a float32 bev6 rollout, 20 vehicles and 50 walkers on the
+            # sidewalk paths, card vs CPU with the same injected draws
+            t = time.time()
+            card_vs_cpu(scene, dataclasses.replace(
+                env6_cfg, gnss_noise_deg=0.0, random_restart_prob=0.0),
+                (6, env6_cfg.bev_width, env6_cfg.bev_width), SEED + 46)
+            progress("town card vs CPU", t)
+
+            for lib in (bev_cuda.LIB, bev6_cuda.LIB):
+                lib.launches = 0
+            t = time.time()
+            tcfg = dataclasses.replace(
+                preset["train"],
+                num_steps=preset["train"].n_envs * TOWN_STEPS)
+            env_cfg_t = dataclasses.replace(
+                preset["env"], max_time=TOWN_DEMO_STEPS * preset["env"].dt)
+            timer = PartTimer()
+            with RunProbe(tcfg, timer) as probe, timer:
+                train_mod.run(env_cfg_t, preset["model"], tcfg,
+                              preset["scene"], TOWN_DEMO_STEPS,
+                              max_updates=1, log_dir=os.path.join(tmp, "log"),
+                              device=dev)
+            if len(probe.of("update")) != 1:
+                raise AssertionError("train.run at town01 ran no update")
+            b1 = bev_cuda.LIB.launches
+            print(f"  train.run town01: B1 launches {b1}", flush=True)
+            progress("town train.run", t)
+            t = time.time()
+            scene_n, cfg_n, _ = nocrash_suite(
+                town="Town01", background_traffic="regular", device=dev)
+            print(f"  nocrash_suite Town01 regular: {scene_n.n_routes} "
+                  f"routes planned from bare start/goal pairs, "
+                  f"{synced_s(t):.3f} s", flush=True)
+            w = env_cfg.bev_width
+            net6 = init_policy(ModelConfig(), (6, w, w), seed=SEED,
+                               device=dev)
+            tier("NoCrash Town01 regular", scene_n, cfg_n, net6, False)
+            b2 = bev6_cuda.LIB.launches
+            progress("town run_tier", t)
+        h5_maps.drop_pack("Town01")
+    if not b1 or not b2:
+        raise AssertionError("a kernel was not launched on the town path")
+    return b1, b2, err, err6
+
+
 def kernel_line(name, source, replaces, launches, err, times):
     k_ms, p_ms, b_ms, b_by = times
     return {
@@ -3081,6 +3341,15 @@ def main() -> int:
     shard_dir.cleanup()
     progress("sharded", t)
 
+    # --- the reconstructed towns: the synthetic tree's Town01, B1 and B2
+    # on its tables, train.run at the town01 preset, its NoCrash tier ---
+    t = time.time()
+    b1, b2, err_t, err6_t = town_path(env_cfg, env6_cfg, dev)
+    launches += b1
+    launches6 += b2
+    err, err6 = max(err, err_t), max(err6, err6_t)
+    progress("town", t)
+
     torch.cuda.synchronize()
     print(json.dumps({"kernels": [
         kernel_line("bev_raster", "gail_carla_tpu_torch/csrc/bev_raster.cu",
@@ -3106,4 +3375,10 @@ if __name__ == "__main__":
         sys.exit(sharded_rank(int(sys.argv[2]), sys.argv[3]))
     if sys.argv[1:2] == ["--shard-cost"]:
         sys.exit(shard_cost())
-    sys.exit(main())
+    try:
+        sys.exit(main())
+    finally:
+        # a phase that fails inside the world-1 NCCL group must not leave
+        # the group's watchdog holding the process at exit
+        if dist.is_initialized():
+            dist.destroy_process_group()

@@ -540,8 +540,35 @@ __global__ void __launch_bounds__(kThreads) raster_kernel(const Params p) {
   }
 }
 
+// A block may use 48 KB of dynamic shared memory without asking; past
+// that the kernel must opt in (cudaFuncAttributeMaxDynamicSharedMemorySize)
+// up to the card's opt-in limit per block (227 KB on H100).
+constexpr size_t kDefaultShared = 48 * 1024;
+// Returned by launch() when one env's staged tables need more shared
+// memory than the card's opt-in limit; the wrapper names the table maxima.
+constexpr int kErrSharedMemory = 1 << 20;
+
+// Raises raster_kernel<kSix>'s dynamic shared-memory limit to `bytes` when
+// they are past the 48 KB default; returns a cudaError, or
+// kErrSharedMemory when `bytes` is past the card's opt-in limit.
+template <bool kSix>
+inline int allow_shared(size_t bytes) {
+  if (bytes <= kDefaultShared) return (int)cudaSuccess;
+  int dev = 0, optin = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) {
+    e = cudaDeviceGetAttribute(&optin,
+                               cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  }
+  if (e != cudaSuccess) return (int)e;
+  if (bytes > (size_t)optin) return kErrSharedMemory;
+  return (int)cudaFuncSetAttribute(raster_kernel<kSix>,
+                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   (int)bytes);
+}
+
 // Launches raster_kernel<kSix> on `stream` for p.n envs; returns the
-// cudaError of the launch.
+// cudaError of the launch (or kErrSharedMemory).
 template <bool kSix>
 inline int launch(Params p, void* stream) {
   if (p.n <= 0 || p.w <= 0) return (int)cudaSuccess;
@@ -553,8 +580,10 @@ inline int launch(Params p, void* stream) {
   p.tiles_x = (p.w + kTileCols - 1) / kTileCols;
   p.tiles = p.tiles_x * ((p.w + p.tile_rows - 1) / p.tile_rows);
   const dim3 grid((p.tiles + kWarps - 1) / kWarps, p.n);
-  raster_kernel<kSix><<<grid, kThreads, smem_bytes(p, kSix),
-                        (cudaStream_t)stream>>>(p);
+  const size_t smem = smem_bytes(p, kSix);
+  const int err = allow_shared<kSix>(smem);
+  if (err != (int)cudaSuccess) return err;
+  raster_kernel<kSix><<<grid, kThreads, smem, (cudaStream_t)stream>>>(p);
   return (int)cudaGetLastError();
 }
 

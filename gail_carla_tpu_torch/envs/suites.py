@@ -7,16 +7,19 @@ reference's task dicts (``nocrash_env.py:60-76``). The host side is the
 JAX package's numpy code with the same ``default_rng(seed)`` draws, so
 the scenes equal the JAX suites' array for array.
 
-The suites run on the procedural grid towns, where route *shape*
-filtering (turn count) replaces the route packs. NPC traffic runs at the
-reference's full per-tier densities (nocrash_env.py:29-55: the grid takes
-Town01's, e.g. dense = 100 vehicles / 250 walkers). The real towns
-(``town=``) need the town importers, which are not ported yet (ROADMAP
-A7), and raise; so do scripted scenario actors.
+With a ``town`` argument, suites run on the reconstructed reference towns
+(scene/town_import.py) and the reference's per-town route packs (NoCrash /
+CoRL2017 ``scenario_descriptions/**/routes.xml``, bare start/goal pairs
+planned through the town's graph); without one, on procedural grid towns
+where route *shape* filtering (turn count) replaces the packs. NPC traffic
+runs at the reference's full per-tier densities (nocrash_env.py:29-55,
+e.g. Town01 dense = 100 vehicles / 250 walkers); on a town with sidewalk
+paths the walkers follow them.
 """
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Dict, List, Tuple
 
 import numpy as np
@@ -24,6 +27,7 @@ import torch
 
 from gail_carla_tpu_torch.config import EnvConfig
 from gail_carla_tpu_torch.device import resolve_device
+from gail_carla_tpu_torch.scene import h5_maps
 from gail_carla_tpu_torch.scene.road_option import RoadOption
 from gail_carla_tpu_torch.scene.routes import RouteDef, generate_routes
 from gail_carla_tpu_torch.scene.scene import (
@@ -54,20 +58,16 @@ NOCRASH_TRAFFIC = {
     },
 }
 
+# the reference's route packs (a checkout at h5_maps.REFERENCE_DATA)
+SCENARIO_DESCRIPTIONS = os.path.join(
+    h5_maps.REFERENCE_DATA, "carla_gym", "envs", "scenario_descriptions")
+
 CORL_TASK_DIRS = {
     "straight": "Straight", "one_curve": "OneCurve",
     "navigation": "Navigation", "navigation_dynamic": "Navigation",
 }
 # corl2017_env.py:41-46
 CORL_DYNAMIC_TRAFFIC = {"Town01": (20, 50), "Town02": (15, 50)}
-
-
-def _no_town(town) -> None:
-    if town is not None:
-        raise NotImplementedError(
-            f"town {town!r}: the reconstructed towns and their route packs "
-            "need the town importers, which are not ported yet (ROADMAP A7)"
-        )
 
 
 def _tasks(weathers, route_ids, n_veh, n_wal) -> List[Dict]:
@@ -89,10 +89,12 @@ def leaderboard_suite(
     town: str = None, route_file: str = "routes_training.xml",
     scenario_actors=None, device="cuda",
 ) -> Tuple[TorchScene, EnvConfig, List[Dict]]:
-    """leaderboard_env.py: LeaderBoard routes on the procedural grid town,
-    zombie counts zeroed (leaderboard_env.py:34-49). ``town`` and
-    ``route_file`` (a reference town's route pack) wait on the town
-    importers.
+    """leaderboard_env.py: LeaderBoard routes, zombie counts zeroed
+    (leaderboard_env.py:34-49). With ``town`` set (e.g. "Town01") the
+    scene is the reconstructed reference town with that town's block of
+    ``route_file`` as the task routes, the reference's actual benchmark
+    (training routes 0-9 == the LeaderBoard Town01 pack). Without it, the
+    procedural grid town.
 
     ``scenario_actors`` maps route_id -> [(polyline_xy, speed), ...],
     scripted per-route adversaries (the actors.json counterpart the
@@ -102,13 +104,18 @@ def leaderboard_suite(
     if town is not None and scenario_actors is not None:
         raise ValueError(
             "scenario_actors are a task field for generated scenes")
-    _no_town(town)
     dev = resolve_device(device)
-    graph = make_grid_town(nx=nx, ny=ny, block=block, seed=seed)
-    routes = generate_routes(graph, n_routes=n_routes, min_length=400.0,
-                             seed=seed)
-    scene = build_scene(graph, routes,
-                        scenario_actors=scenario_actors).to(dev)
+    if town is not None:
+        from gail_carla_tpu_torch.scene.town_import import make_town_scene
+
+        scene = make_town_scene(town, route_file, device=dev)
+        n_routes = scene.n_routes
+    else:
+        graph = make_grid_town(nx=nx, ny=ny, block=block, seed=seed)
+        routes = generate_routes(graph, n_routes=n_routes,
+                                 min_length=400.0, seed=seed)
+        scene = build_scene(graph, routes,
+                            scenario_actors=scenario_actors).to(dev)
     cfg = EnvConfig(
         train=True, terminal_mode="leaderboard",
         n_scenario_actors=int(scene.sa_max),
@@ -122,17 +129,27 @@ def nocrash_suite(
     n_routes: int = 10, seed: int = 2021,
     town: str = None, route_description: str = "lbc", device="cuda",
 ) -> Tuple[TorchScene, EnvConfig, List[Dict]]:
-    """nocrash_env.py on the procedural 3x3 grid town, with the traffic
-    densities of nocrash_env.py:29-55 for Town01 at the reference's FULL
-    counts (dense = 100/250). ``town`` (the shipped NoCrash route packs of
-    ``route_description``) waits on the town importers."""
-    _no_town(town)
+    """nocrash_env.py: with ``town`` ("Town01"/"Town02") the scene is the
+    reconstructed real town and the routes are the shipped NoCrash pack
+    (``scenario_descriptions/NoCrash/<route_description>/<town>/
+    routes.xml``, start/goal pairs planned through the completed lane
+    graph; nocrash_env.py:57-59). Without it, the procedural 3x3 grid
+    town. Traffic densities follow nocrash_env.py:29-55 per town at the
+    reference's FULL counts (Town01 dense = 100/250)."""
     dev = resolve_device(device)
-    graph = make_grid_town(nx=3, ny=3, block=90.0, seed=seed)
-    routes = generate_routes(graph, n_routes=n_routes, min_length=300.0,
-                             seed=seed)
-    scene = build_scene(graph, routes).to(dev)
-    n_veh, n_wal = NOCRASH_TRAFFIC["Town01"][background_traffic]
+    if town is not None:
+        from gail_carla_tpu_torch.scene.town_import import make_town_scene
+
+        pack = os.path.join(SCENARIO_DESCRIPTIONS, "NoCrash",
+                            route_description, town, "routes.xml")
+        scene = make_town_scene(town, pack, device=dev)
+        n_routes = scene.n_routes
+    else:
+        graph = make_grid_town(nx=3, ny=3, block=90.0, seed=seed)
+        routes = generate_routes(graph, n_routes=n_routes,
+                                 min_length=300.0, seed=seed)
+        scene = build_scene(graph, routes).to(dev)
+    n_veh, n_wal = NOCRASH_TRAFFIC[town or "Town01"][background_traffic]
     cfg = EnvConfig(
         train=True, terminal_mode="leaderboard",
         n_npc_vehicles=n_veh, n_npc_walkers=n_wal,
@@ -204,16 +221,32 @@ def corl2017_suite(
     seed: int = 2021, town: str = None, route_description: str = "lbc",
     device="cuda",
 ) -> Tuple[TorchScene, EnvConfig, List[Dict]]:
-    """corl2017_env.py: straight / one_curve / navigation[_dynamic] tasks
-    on the procedural 4x4 grid town, whose shaped routes come from graph
-    walks with a turn budget (0, 1 or 4 turns). ``town`` (the shipped
-    per-shape route packs, corl2017_env.py:28-46) waits on the town
-    importers."""
+    """corl2017_env.py: straight / one_curve / navigation[_dynamic] tasks.
+    With ``town`` set, routes come from the shipped per-shape pack
+    (``scenario_descriptions/CoRL2017/<route_description>/<TaskDir>/
+    <town>/routes.xml``, corl2017_env.py:28-46) planned through the
+    reconstructed town; otherwise the procedural 4x4 grid town's shaped
+    routes come from graph walks with a turn budget (0, 1 or 4 turns)."""
     assert task_type in (
         "straight", "one_curve", "navigation", "navigation_dynamic"
     )
-    _no_town(town)
     dev = resolve_device(device)
+    if town is not None:
+        from gail_carla_tpu_torch.scene.town_import import make_town_scene
+
+        pack = os.path.join(SCENARIO_DESCRIPTIONS, "CoRL2017",
+                            route_description, CORL_TASK_DIRS[task_type],
+                            town, "routes.xml")
+        scene = make_town_scene(town, pack, device=dev)
+        dyn = task_type == "navigation_dynamic"
+        n_veh, n_wal = CORL_DYNAMIC_TRAFFIC[town] if dyn else (0, 0)
+        cfg = EnvConfig(
+            train=True, terminal_mode="leaderboard",
+            n_npc_vehicles=n_veh, n_npc_walkers=n_wal,
+        )
+        tasks = _tasks(WEATHER_GROUPS[weather_group],
+                       range(scene.n_routes), n_veh, n_wal)
+        return scene, cfg, tasks
     graph = make_grid_town(nx=4, ny=4, block=100.0, seed=seed)
     rng = np.random.default_rng(seed)
     n_turns = {"straight": 0, "one_curve": 1}.get(task_type, 4)

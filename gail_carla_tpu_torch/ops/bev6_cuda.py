@@ -23,7 +23,9 @@ from gail_carla_tpu_torch.config import EnvConfig
 from gail_carla_tpu_torch.cuda_build import CudaLibrary
 from gail_carla_tpu_torch.ops.bev import ROUTE_STRIDE, ROUTE_WINDOW
 from gail_carla_tpu_torch.ops.bev6 import light_values
-from gail_carla_tpu_torch.ops.bev_cuda import base_args, check_tensor, launch
+from gail_carla_tpu_torch.ops.bev_cuda import (
+    base_args, check_tensor, launch, smem_bytes,
+)
 from gail_carla_tpu_torch.ops.bev_full import TL_LINE_HALF_W, WALKER_HALF
 from gail_carla_tpu_torch.sim.dynamics import DEFAULT_VEHICLE
 
@@ -36,21 +38,32 @@ LIB = CudaLibrary(
 )
 
 
+def _route_capsules() -> int:
+    return len(range(0, ROUTE_WINDOW, ROUTE_STRIDE)) - 1
+
+
 def shared_bytes(scene, n_vehicles: int, n_walkers: int) -> int:
     """Dynamic shared memory of one B2 block for ``scene`` and these actor
     counts (``smem_bytes`` of ``csrc/bev_raster_common.cuh``): each staged
     item's coefficients as floats (9 per boundary edge, 8 per lane or
     route capsule and stop line, 6 per box: the ego, the vehicles and the
     walkers) and each of the block's 8 warps' survivor lists as 16-bit
-    indices. A launch without a raised limit may use 48 KB; past that the
-    launch fails with its CUDA error."""
-    mb = scene.cell_bnd.shape[2]
-    ml = scene.cell_lane.shape[2]
-    mt = scene.cell_tl.shape[2]
-    k = len(range(0, ROUTE_WINDOW, ROUTE_STRIDE)) - 1
-    boxes = 1 + n_vehicles + n_walkers
-    floats = mb * 9 + (ml + k) * 8 + mt * 8 + boxes * 6
-    return 4 * floats + 2 * 8 * (mb + ml + k + mt + boxes)
+    indices. Up to 48 KB a launch needs no opt-in; past that the launch
+    raises the kernel's limit (``cudaFuncAttributeMaxDynamicSharedMemory
+    Size``) to these bytes, up to the card's opt-in limit per block (227 KB
+    on H100), and past that limit the wrapper raises, naming the table
+    maxima. Pixels do not depend on it."""
+    return smem_bytes(scene.cell_bnd.shape[2], scene.cell_lane.shape[2],
+                      _route_capsules(), scene.cell_tl.shape[2],
+                      1 + n_vehicles + n_walkers)
+
+
+def shared_bytes_bev(scene) -> int:
+    """B1's counterpart of ``shared_bytes``: one block stages the cell's
+    boundary edges, lane capsules and the route window's capsules (the
+    same rule for the limit)."""
+    return smem_bytes(scene.cell_bnd.shape[2], scene.cell_lane.shape[2],
+                      _route_capsules())
 
 
 def bev6_prologue(scene, cfg: EnvConfig, render_state):
@@ -96,11 +109,15 @@ def render_bev6_cuda(scene, cfg: EnvConfig, render_state, cos_yaw, sin_yaw,
     out = torch.empty((n, 6, w, w), dtype=torch.float32, device=dev)
     if n == 0:
         return out
+    mb, ml, rk = ints[3], ints[4], ints[9]
     launch(LIB, ptrs + [x.data_ptr() for _, x, _, _ in tensors]
            + [out.data_ptr()] + ints + [mt, t, s, k, wk] + floats
            + [TL_LINE_HALF_W ** 2, TL_LINE_HALF_W,
               DEFAULT_VEHICLE.half_length, DEFAULT_VEHICLE.half_width,
-              WALKER_HALF[0], WALKER_HALF[1]], dev)
+              WALKER_HALF[0], WALKER_HALF[1]], dev,
+           f"Mb={mb} boundary edges, Ml={ml} lane capsules, {rk} route "
+           f"capsules, Mt={mt} stop lines, {1 + k + wk} boxes: "
+           f"{smem_bytes(mb, ml, rk, mt, 1 + k + wk)} bytes")
     return out
 
 

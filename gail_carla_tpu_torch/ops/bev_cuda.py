@@ -24,6 +24,13 @@ from gail_carla_tpu_torch.ops.bev import (
 )
 
 MAX_ENVS = 65535               # grid.y
+# csrc/bev_raster_common.cuh: a block's dynamic shared memory without an
+# opt-in, and the code launch() returns past the card's opt-in limit
+DEFAULT_SHARED_BYTES = 48 * 1024
+SHARED_MEMORY_ERROR = 1 << 20
+# floats staged per boundary edge, per capsule (lane, route, stop line),
+# per box; the survivor lists of the block's warps hold 16-bit indices
+BND_COEF, CAP_COEF, BOX_COEF, WARPS = 9, 8, 6, 8
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -102,11 +109,27 @@ def base_args(scene, cfg: EnvConfig, render_state, cos_yaw, sin_yaw):
     return ptrs, ints, floats, dev
 
 
-def launch(lib: CudaLibrary, args, dev):
+def smem_bytes(mb: int, ml: int, k: int, mt: int = 0,
+               boxes: int = 0) -> int:
+    """``smem_bytes`` of ``csrc/bev_raster_common.cuh``: one block's
+    dynamic shared memory for ``mb`` boundary edges, ``ml`` lane and ``k``
+    route capsules and (B2) ``mt`` stop lines and ``boxes`` boxes."""
+    floats = mb * BND_COEF + (ml + k + mt) * CAP_COEF + boxes * BOX_COEF
+    return 4 * floats + 2 * WARPS * (mb + ml + k + mt + boxes)
+
+
+def launch(lib: CudaLibrary, args, dev, tables: str = ""):
     """Calls ``lib``'s entry point on the current stream of ``dev``;
-    raises on a nonzero cudaError, else counts the launch."""
+    raises on a nonzero cudaError, else counts the launch. ``tables``
+    names the table maxima, for the error of a block whose staged items
+    pass the card's opt-in shared-memory limit."""
     with torch.cuda.device(dev):
         err = lib.fn(*args, torch.cuda.current_stream(dev).cuda_stream)
+    if err == SHARED_MEMORY_ERROR:
+        raise RuntimeError(
+            f"{lib.entry}: one env's tables ({tables}) need more shared "
+            "memory per block than the card allows; thin the cell tables "
+            "(a larger max_err_px, a smaller cell_size) or the actors")
     if err != 0:
         raise RuntimeError(f"{lib.entry} failed: cudaError {err}")
     lib.launches += 1
@@ -122,7 +145,10 @@ def render_bev_cuda(scene, cfg: EnvConfig, render_state, cos_yaw,
     out = torch.empty((n, 3, w, w), dtype=torch.float32, device=dev)
     if n == 0:
         return out
-    launch(LIB, ptrs + [out.data_ptr()] + ints + floats, dev)
+    mb, ml, k = ints[3], ints[4], ints[9]
+    launch(LIB, ptrs + [out.data_ptr()] + ints + floats, dev,
+           f"Mb={mb} boundary edges, Ml={ml} lane capsules, {k} route "
+           f"capsules: {smem_bytes(mb, ml, k)} bytes")
     return out
 
 

@@ -1,13 +1,17 @@
-"""Procedural route generation over a lane graph (numpy, host side).
+"""Route definitions: XML parsing/writing + procedural generation (numpy,
+host side).
 
-Copy of ``gail_carla_tpu/scene/routes.py::generate_routes``; the XML
-readers and writers that only the town importers use are not ported. A
-route is an ordered list of keypoint poses; dense tracing happens in
-``scene.trace``.
+Copy of ``gail_carla_tpu/scene/routes.py``. File-format compatible with the
+reference's leaderboard ``routes_*.xml`` (``data/routes_training.xml``:
+``<routes><route id town><waypoint x y z yaw pitch roll/>...``), parsed
+there by ``carla_gym/utils/config_utils.py:73-128``. A route is an ordered
+list of keypoint poses; dense tracing happens in ``scene.trace``.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
+import xml.etree.ElementTree as ET
 from typing import List
 
 import numpy as np
@@ -20,6 +24,44 @@ class RouteDef:
     route_id: int
     town: str
     waypoints: np.ndarray      # (K, 3): x, y, yaw(rad)
+
+
+def parse_routes_xml(path: str) -> List[RouteDef]:
+    tree = ET.parse(path)
+    routes = []
+    for route in tree.iter("route"):
+        wps = []
+        for wp in route.iter("waypoint"):
+            wps.append(
+                [
+                    float(wp.attrib["x"]),
+                    float(wp.attrib["y"]),
+                    math.radians(float(wp.attrib.get("yaw", 0.0))),
+                ]
+            )
+        routes.append(
+            RouteDef(
+                route_id=int(route.attrib.get("id", len(routes))),
+                town=route.attrib.get("town", ""),
+                waypoints=np.array(wps, dtype=np.float64),
+            )
+        )
+    return routes
+
+
+def write_routes_xml(routes: List[RouteDef], path: str) -> None:
+    root = ET.Element("routes")
+    for r in routes:
+        el = ET.SubElement(
+            root, "route", id=str(r.route_id), town=r.town
+        )
+        for x, y, yaw in r.waypoints:
+            ET.SubElement(
+                el, "waypoint",
+                x=f"{x}", y=f"{y}", z="0.0",
+                yaw=f"{math.degrees(yaw)}", pitch="0.0", roll="0.0",
+            )
+    ET.ElementTree(root).write(path, encoding="unicode")
 
 
 def generate_routes(

@@ -8,10 +8,10 @@ its result is a ``TorchScene`` with the field names of ``StaticScene``
 The map is stored as capsule segments bucketed into a spatial grid
 (scene/segments.py). ``build_scene`` takes precomputed dense routes
 (``dense=``, the endless suite's chained rows), scripted scenario actors
-(``scenario_actors=``) and static obstacles (``obstacles=``). The options
-that only the town importers use (ground-truth geometry, sidewalk paths)
-are not ported: the procedural scene leaves those tables at their empty
-defaults.
+(``scenario_actors=``), static obstacles (``obstacles=``) and the
+ground-truth mask geometry of a reconstructed town (``geometry=``,
+scene/h5_maps.py::TownGeometry: road and hard-surface boundaries, lane
+markings, sidewalk paths for the walkers).
 """
 from __future__ import annotations
 
@@ -136,6 +136,10 @@ def _pad_polyline_set(patrols, pad: int = 128):
     patrol_n = np.zeros((P,), np.int32)
     for i, (xy, yaw, cmd) in enumerate(patrols):
         n = len(xy)
+        if len(yaw) < n:
+            # a degenerate single-point patrol has no segment to take a
+            # yaw from
+            yaw = np.concatenate([yaw, np.zeros(n - len(yaw))])
         patrol_xy[i, :n] = xy
         patrol_xy[i, n:] = xy[-1]
         patrol_yaw[i, :n] = yaw
@@ -193,6 +197,37 @@ def _build_patrols(
     return patrols
 
 
+def _walk_tables(geometry, bnd_ab: np.ndarray) -> dict:
+    """The walkers' sidewalk tables of a town with sidewalk paths, else
+    none (``walk_*`` stay None): each centreline padded like a patrol,
+    and its road-crossing offset, the signed lateral displacement that
+    carries a walker from this pavement across the adjacent road (sign
+    from the side the road boundary lies on)."""
+    if geometry is None or not geometry.sidewalk_paths:
+        return {}
+    wps = [_polyline_with_yaw(p) for p in geometry.sidewalk_paths]
+    walk_xy, walk_yaw, _, walk_n = _pad_polyline_set(wps)
+    crosses = []
+    for p in geometry.sidewalk_paths:
+        mid = np.asarray(p[:: max(len(p) // 8, 1)], np.float64)
+        closest, sd, _ = mask_geo.boundary_project(bnd_ab, mid)
+        d = closest - mid
+        tang = np.gradient(np.asarray(p, np.float64), axis=0)[
+            :: max(len(p) // 8, 1)
+        ][: len(mid)]
+        tang /= np.linalg.norm(tang, axis=1, keepdims=True) + 1e-9
+        nrm = np.stack([-tang[:, 1], tang[:, 0]], axis=1)
+        side = np.sign(np.sum(np.sum(d * nrm, axis=1)))
+        side = side if side != 0 else 1.0
+        # pavement-to-pavement: across the gap to the road plus a typical
+        # 7 m carriageway plus the far pavement inset
+        dist = 2.0 * float(np.mean(np.abs(sd))) + 7.0
+        crosses.append(side * dist)
+    t = torch.from_numpy
+    return dict(walk_xy=t(walk_xy), walk_yaw=t(walk_yaw), walk_n=t(walk_n),
+                walk_cross=t(np.asarray(crosses, np.float32)))
+
+
 def build_scene(
     graph: LaneGraph,
     route_defs: Sequence[RouteDef],
@@ -203,6 +238,7 @@ def build_scene(
     dense=None,
     scenario_actors=None,
     obstacles=None,
+    geometry=None,
 ) -> TorchScene:
     """Compile a lane graph and its routes into a CPU ``TorchScene``.
     ``dense`` optionally supplies the routes' ``DenseRoute``s instead of
@@ -214,7 +250,14 @@ def build_scene(
     patrols, and ``sa_patrol``/``sa_speed`` say which rows each ego route
     activates (``sim/traffic.py``). ``obstacles`` is a list of (x, y, yaw,
     half_x, half_y) static OBBs (buildings, poles); hitting one scores a
-    layout collision (``sim/collisions.py::obstacle_collision``)."""
+    layout collision (``sim/collisions.py::obstacle_collision``).
+
+    ``geometry`` (scene/h5_maps.py::TownGeometry) supplies a reconstructed
+    town's ground truth: its lane-marking capsules replace the graph's,
+    its road boundary replaces the one traced from the graph's rasterized
+    road, its hard (curb-to-wall) boundary gets its own cell tables, and
+    its sidewalk centrelines become the walkers' paths (``walk_*``), each
+    with the signed offset of a road crossing (``walk_cross``)."""
     if dense is None:
         dense = [trace_mod.trace_route(graph, r.waypoints)
                  for r in route_defs]
@@ -256,24 +299,52 @@ def build_scene(
     plan_gps = location_to_gps_np(plan_xy.reshape(-1, 2)).reshape(R, P, 2)
 
     soup = seg_mod.extract_segments(graph)
+    if geometry is not None:
+        # ground-truth lane markings replace the graph-derived ones
+        soup = seg_mod.SegmentSoup(
+            road_ab=soup.road_ab, road_junction=soup.road_junction,
+            lane_ab=np.asarray(geometry.lane_ab, np.float32).reshape(-1, 4),
+            lane_val=np.asarray(geometry.lane_val, np.float32),
+            lane_hw=np.asarray(geometry.lane_hw, np.float32),
+        )
     all_pts = np.concatenate([e.pts for e in graph.edges], axis=0)
     table = seg_mod.build_cell_table(
         soup, all_pts.min(axis=0), all_pts.max(axis=0), cell_size=cell_size
     )
 
-    # oriented road-boundary edges from the graph's own rasterized road
-    # mask; 0.49 px is the simplification error the JAX scene uses
-    tex = rasterize_town(graph)
-    bnd_ab, bnd_dmax = mask_geo.mask_boundary_edges(
-        tex.road > 0, tex.world_offset.astype(np.float64), tex.ppm,
-        max_err_px=0.49,
-    )
+    # oriented road-boundary edges: ground truth when supplied, else from
+    # the graph's own rasterized road mask (0.49 px is the simplification
+    # error the JAX scene uses)
+    if geometry is not None:
+        bnd_ab = np.asarray(geometry.bnd_ab, np.float32).reshape(-1, 4)
+        bnd_dmax = float(geometry.bnd_dmax)
+    else:
+        tex = rasterize_town(graph)
+        bnd_ab, bnd_dmax = mask_geo.mask_boundary_edges(
+            tex.road > 0, tex.world_offset.astype(np.float64), tex.ppm,
+            max_err_px=0.49,
+        )
     gy_, gx_ = table.road.shape[:2]
     cell_bnd, cell_bnd_n = seg_mod.build_bnd_cells(
         bnd_ab, table.grid_lo, gy_, gx_, table.cell_size, bnd_dmax
     )
-    # procedural towns: the road corridor is the whole drivable world, so
-    # the hard (curb-to-wall) boundary aliases the road boundary
+    cell_bnd_t = torch.from_numpy(cell_bnd)
+    cell_bnd_n_t = torch.from_numpy(cell_bnd_n)
+    if geometry is not None and geometry.hard_ab is not None \
+            and len(geometry.hard_ab):
+        hard_ab = np.asarray(geometry.hard_ab, np.float32).reshape(-1, 4)
+        hard_dmax = float(geometry.hard_dmax)
+        cell_hard, cell_hard_n = seg_mod.build_bnd_cells(
+            hard_ab, table.grid_lo, gy_, gx_, table.cell_size, hard_dmax
+        )
+        cell_hard_t = torch.from_numpy(cell_hard)
+        cell_hard_n_t = torch.from_numpy(cell_hard_n)
+    else:
+        # procedural towns: the road corridor is the whole drivable
+        # world, so the hard (curb-to-wall) boundary aliases the road's
+        cell_hard_t, cell_hard_n_t, hard_dmax = (cell_bnd_t, cell_bnd_n_t,
+                                                 bnd_dmax)
+    walk = _walk_tables(geometry, bnd_ab)
 
     tls = graph.traffic_lights
     sss = graph.stop_signs
@@ -331,7 +402,6 @@ def build_scene(
         ob_extent[i] = (hx, hy)
 
     t = torch.from_numpy
-    cell_bnd_t, cell_bnd_n_t = t(cell_bnd), t(cell_bnd_n)
     return TorchScene(
         route_xy=t(route_xy),
         route_yaw=t(route_yaw),
@@ -357,9 +427,10 @@ def build_scene(
         cell_bnd=cell_bnd_t,
         cell_bnd_n=cell_bnd_n_t,
         bnd_dmax=bnd_dmax,
-        cell_hard=cell_bnd_t,
-        cell_hard_n=cell_bnd_n_t,
-        hard_dmax=bnd_dmax,
+        cell_hard=cell_hard_t,
+        cell_hard_n=cell_hard_n_t,
+        hard_dmax=hard_dmax,
+        **walk,
         cell_size=table.cell_size,
         half_lane=float(graph.lane_width / 2.0),
         tl_stop=t(tl_stop),

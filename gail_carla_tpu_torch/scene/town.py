@@ -136,6 +136,122 @@ def _sample_arc(
     return out
 
 
+def _sample_uturn(
+    p0: np.ndarray, yaw0: float, p1: np.ndarray, yaw1: float,
+    radius: float = 4.6, step: float = 1.0, candidates: bool = False,
+):
+    """Drivable turnaround between two anti-parallel posed endpoints.
+
+    CARLA median U-turns (Town03+ ``routes_training.xml`` has consecutive
+    waypoints ~3.3 m apart with opposite headings) traverse the junction
+    opening on a path the hero vehicle can actually steer — its minimum
+    turning radius is wheelbase/tan(max_steer) ≈ 4.2 m
+    (sim/dynamics.py:46-48), so a Hermite blend between the endpoint poses
+    (a sub-metre hairpin) is untrackable at any speed. Build the shorter of
+    the two same-side Dubins paths (LSL/RSR: arc — straight — arc) at
+    ``radius``, the classic teardrop bulging into the junction area."""
+    p0 = np.asarray(p0, np.float64)
+    p1 = np.asarray(p1, np.float64)
+    r = radius
+    two_pi = 2.0 * math.pi
+
+    def nvec(yaw):
+        return np.array([-math.sin(yaw), math.cos(yaw)])
+
+    def word(s0, s1):
+        """CSC Dubins word: arc (side s0) — straight — arc (side s1)."""
+        c0 = p0 + r * s0 * nvec(yaw0)
+        c1 = p1 + r * s1 * nvec(yaw1)
+        D = c1 - c0
+        d = float(np.linalg.norm(D))
+        theta = math.atan2(D[1], D[0]) if d > 1e-9 else yaw0
+        if s0 == s1:
+            psi, straight = theta, d
+        else:
+            if d < 2.0 * r:
+                return None
+            psi = theta + s0 * math.asin(min(2.0 * r / d, 1.0))
+            straight = math.sqrt(max(d * d - 4.0 * r * r, 0.0))
+        phi0 = yaw0 - s0 * math.pi / 2.0
+        phit0 = psi - s0 * math.pi / 2.0
+        phit1 = psi - s1 * math.pi / 2.0
+        phi1 = yaw1 - s1 * math.pi / 2.0
+
+        def sweep(a, b, s):
+            return (b - a) % two_pi if s > 0 else -((a - b) % two_pi)
+
+        sw0 = sweep(phi0, phit0, s0)
+        sw1 = sweep(phit1, phi1, s1)
+        length = (abs(sw0) + abs(sw1)) * r + straight
+
+        def arc(c, a, s):
+            n = max(int(math.ceil(abs(s) * r / step)), 1)
+            ang = a + np.linspace(0.0, s, n + 1)
+            return c[None, :] + r * np.stack(
+                [np.cos(ang), np.sin(ang)], axis=1
+            )
+
+        a0 = arc(c0, phi0, sw0)
+        a1 = arc(c1, phit1, sw1)
+        parts = [a0]
+        if straight > step:
+            parts.append(_sample_line(a0[-1], a1[0], step)[1:])
+        parts.append(a1[1:])
+        return length, np.concatenate(parts, axis=0)
+
+    def word_ccc(s, bend):
+        """CCC word (LRL/RLR): three mutually tangent arcs — the compact
+        turnaround when the endpoint circles overlap (lateral offset
+        < 2r, exactly the median-U-turn case)."""
+        c0 = p0 + r * s * nvec(yaw0)
+        c2 = p1 + r * s * nvec(yaw1)
+        D = c2 - c0
+        d = float(np.linalg.norm(D))
+        if d > 4.0 * r - 1e-9:
+            return None
+        theta = math.atan2(D[1], D[0]) if d > 1e-9 else yaw0
+        gamma = math.acos(d / (4.0 * r))
+        c1 = c0 + 2.0 * r * np.array(
+            [math.cos(theta + bend * gamma), math.sin(theta + bend * gamma)]
+        )
+        t0 = 0.5 * (c0 + c1)
+        t1 = 0.5 * (c1 + c2)
+
+        def ang(v):
+            return math.atan2(v[1], v[0])
+
+        def sweep(a, b, sg):
+            return (b - a) % two_pi if sg > 0 else -((a - b) % two_pi)
+
+        phi0 = yaw0 - s * math.pi / 2.0
+        sw0 = sweep(phi0, ang(c1 - c0), s)
+        swm = sweep(ang(c0 - c1), ang(c2 - c1), -s)
+        sw2 = sweep(ang(c1 - c2), yaw1 - s * math.pi / 2.0, s)
+        length = (abs(sw0) + abs(swm) + abs(sw2)) * r
+
+        def arc(c, a, sg):
+            n = max(int(math.ceil(abs(sg) * r / step)), 1)
+            aa = a + np.linspace(0.0, sg, n + 1)
+            return c[None, :] + r * np.stack(
+                [np.cos(aa), np.sin(aa)], axis=1
+            )
+
+        a0 = arc(c0, phi0, sw0)
+        am = arc(c1, ang(t0 - c1), swm)
+        a2 = arc(c2, ang(t1 - c2), sw2)
+        return length, np.concatenate([a0, am[1:], a2[1:]], axis=0)
+
+    cands = [w for w in (word(+1, +1), word(-1, -1),
+                         word(+1, -1), word(-1, +1),
+                         word_ccc(+1, +1), word_ccc(+1, -1),
+                         word_ccc(-1, +1), word_ccc(-1, -1))
+             if w is not None]
+    if candidates:
+        # caller scores the words itself (e.g. by road-mask adherence)
+        return cands
+    return min(cands, key=lambda lp: lp[0])[1]
+
+
 def _turn_option(yaw_in: float, yaw_out: float) -> RoadOption:
     d = (yaw_out - yaw_in + math.pi) % (2 * math.pi) - math.pi
     if d > 0.35:

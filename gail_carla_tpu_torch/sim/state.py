@@ -2,8 +2,7 @@
 
 Port of ``gail_carla_tpu/sim/state.py``. Every field carries a leading env
 axis. The JAX state also carries its PRNG key; here randomness comes from
-a ``torch.Generator`` (or injected draws) passed to reset and step. The
-scenario-actor slots are not ported.
+a ``torch.Generator`` (or injected draws) passed to reset and step.
 """
 from __future__ import annotations
 

@@ -12,16 +12,20 @@ Port of ``gail_carla_tpu/sim/traffic.py`` (zombie_vehicle_handler.py:
   its ego route's polyline (``scene.sa_patrol``) at its task speed,
   blind to lead vehicles and lights, and parks at the polyline's end;
   slots the route does not use park far away;
-- walkers follow a patrol polyline at a signed lateral offset, the
-  pavement band just off the road edge (``half_lane + SIDEWALK_OFFSET``
-  to the right, past the oncoming lane to the left); a crossing flips
-  the band's sign and the offset lerps over at walking speed.
+- walkers follow sidewalks. A reconstructed town's scene carries real
+  sidewalk centrelines (skeletons of the H5 ``sidewalk`` layer,
+  ``scene.walk_*``): each walker follows one at offset 0, and a crossing
+  lerps the offset to ``scene.walk_cross[path]``, the signed lateral
+  displacement across the adjacent road (and back). Procedural towns
+  have no sidewalk masks: the walker follows a vehicle patrol polyline
+  on the pavement band just off the road edge (``half_lane +
+  SIDEWALK_OFFSET`` to the right, past the oncoming lane to the left),
+  and a crossing flips the band's sign. The offset lerps over at walking
+  speed.
 
 Randomness is injected: ``reset_traffic`` takes a ``TrafficResetDraws``
 and ``step_traffic`` the walkers' crossing coin, each drawn from a
 ``torch.Generator`` when not given; the scenario slots take no draw.
-The real sidewalk centrelines of imported towns (``scene.walk_xy``) are
-not ported and raise.
 """
 from __future__ import annotations
 
@@ -67,17 +71,20 @@ class TrafficResetDraws(NamedTuple):
     veh_frac: torch.Tensor      # (N, K, C) uniform [0, 1) head fraction
     veh_jitter: torch.Tensor    # (N, K, C) uniform [0, 1) pick tie-break
     veh_speed: torch.Tensor     # (N, K) target speed in [4.5, 6.5) m/s
-    walker_pat: torch.Tensor    # (N, W) int polyline id in [0, P)
+    walker_pat: torch.Tensor    # (N, W) int polyline id in [0, Pw)
     walker_frac: torch.Tensor   # (N, W) uniform [0, 1) head fraction
     walker_side: torch.Tensor   # (N, W) uniform [0, 1): < 0.5 kerbside
+    #                             (unused on sidewalk paths)
     walker_speed: torch.Tensor  # (N, W) speed in [1, 2) m/s
 
 
-def _check_cfg(scene, cfg: EnvConfig) -> None:
-    if cfg.n_npc_walkers and scene.walk_xy is not None:
-        raise NotImplementedError(
-            "walkers on imported sidewalk centrelines are not ported yet"
-        )
+def _walker_arrays(scene):
+    """(polyline_xy, polyline_n, on_sidewalk): the real sidewalk
+    centrelines when the scene has them (reconstructed towns), else the
+    vehicle patrol polylines (procedural towns use pavement bands)."""
+    if scene.walk_xy is not None:
+        return scene.walk_xy, scene.walk_n, True
+    return scene.patrol_xy, scene.patrol_n, False
 
 
 def draw_traffic_reset(scene, cfg: EnvConfig, n: int,
@@ -86,18 +93,19 @@ def draw_traffic_reset(scene, cfg: EnvConfig, n: int,
     dev = scene.device
     K, W, C = cfg.n_npc_vehicles, cfg.n_npc_walkers, N_CANDIDATES
     P = scene.patrol_xy.shape[0]
+    Pw = _walker_arrays(scene)[0].shape[0]
 
     def u(*shape):
         return torch.rand(shape, generator=generator, device=dev)
 
-    def pat(*shape):
-        return torch.randint(0, P, shape, generator=generator, device=dev,
-                             dtype=torch.int32)
+    def pat(rows, *shape):
+        return torch.randint(0, rows, shape, generator=generator,
+                             device=dev, dtype=torch.int32)
 
     return TrafficResetDraws(
-        veh_pat=pat(n, K, C), veh_frac=u(n, K, C), veh_jitter=u(n, K, C),
-        veh_speed=4.5 + 2.0 * u(n, K),
-        walker_pat=pat(n, W), walker_frac=u(n, W), walker_side=u(n, W),
+        veh_pat=pat(P, n, K, C), veh_frac=u(n, K, C),
+        veh_jitter=u(n, K, C), veh_speed=4.5 + 2.0 * u(n, K),
+        walker_pat=pat(Pw, n, W), walker_frac=u(n, W), walker_side=u(n, W),
         walker_speed=1.0 + u(n, W),
     )
 
@@ -161,9 +169,8 @@ def reset_traffic(scene, cfg: EnvConfig, ego_xy: torch.Tensor,
     """Spawn K vehicles per env on random patrol points >= 10 m from the
     ego (zombie_vehicle_handler.py:30-40), then the A scenario slots of
     the env's ego route (``route_id`` (N,), route 0 when not given), and W
-    walkers at random patrol points, on a random pavement band, with
-    random speeds."""
-    _check_cfg(scene, cfg)
+    walkers at random points of the sidewalk paths (offset 0) or of the
+    patrols (on a random pavement band), with random speeds."""
     n = ego_xy.shape[0]
     K, W = cfg.n_npc_vehicles, cfg.n_npc_walkers
     A = cfg.n_scenario_actors
@@ -214,17 +221,22 @@ def reset_traffic(scene, cfg: EnvConfig, ego_xy: torch.Tensor,
         t.veh_target_speed = torch.cat(target, dim=1)
 
     if W > 0:
+        wxy, wn, on_sidewalk = _walker_arrays(scene)
         pat = draws.walker_pat
-        pn = scene.patrol_n[pat.long()]
+        pn = wn[pat.long()]
         head = torch.minimum(
             (draws.walker_frac * (pn.to(torch.float32) - 2.0)).to(
                 torch.int32).clamp_min(0),
             pn - 2,
         )
-        win = _rows(scene.patrol_xy, pat, head, 2)
+        win = _rows(wxy, pat, head, 2)
         tang, normal = _unit_normal(win[..., 0, :], win[..., 1, :])
-        near, far = _bands(scene)
-        off = torch.where(draws.walker_side < 0.5, near, far)
+        if on_sidewalk:
+            # real pavement centrelines: walk them at offset 0
+            off = torch.zeros_like(draws.walker_side)
+        else:
+            near, far = _bands(scene)
+            off = torch.where(draws.walker_side < 0.5, near, far)
         t.walker_xy = win[..., 0, :] + off[..., None] * normal
         t.walker_yaw = torch.atan2(tang[..., 1], tang[..., 0])
         t.walker_patrol = pat.to(torch.int32)
@@ -336,17 +348,23 @@ def _step_vehicles(scene, cfg: EnvConfig, traffic: TrafficState,
 
 def _step_walkers(scene, cfg: EnvConfig, traffic: TrafficState,
                   cross_coin) -> TrafficState:
-    win = _rows(scene.patrol_xy, traffic.walker_patrol, traffic.walker_head,
-                2)
+    wxy, wn, on_sidewalk = _walker_arrays(scene)
+    win = _rows(wxy, traffic.walker_patrol, traffic.walker_head, 2)
     c1 = win[..., 1, :]
     _, normal = _unit_normal(win[..., 0, :], c1)
 
     # a crossing toggles the target between the kerbside pavement and the
     # one across the road (the walker is on the road only while crossing)
     flip = cross_coin < cfg.dt / CROSS_EVERY_S
-    near, far = _bands(scene)
-    off_t = torch.where(flip, (near + far) - traffic.walker_off_t,
-                        traffic.walker_off_t)
+    if on_sidewalk:
+        other = scene.walk_cross[traffic.walker_patrol.long()]
+        flip_target = torch.where(
+            torch.abs(traffic.walker_off_t) < 0.5 * torch.abs(other),
+            other, 0.0)
+    else:
+        near, far = _bands(scene)
+        flip_target = (near + far) - traffic.walker_off_t
+    off_t = torch.where(flip, flip_target, traffic.walker_off_t)
     step_len = traffic.walker_speed * cfg.dt
     off = traffic.walker_off + torch.clamp(
         off_t - traffic.walker_off, -step_len, step_len
@@ -359,14 +377,13 @@ def _step_walkers(scene, cfg: EnvConfig, traffic: TrafficState,
         ..., None]
     yaw = torch.atan2(d[..., 1], d[..., 0])
 
-    pn = scene.patrol_n[traffic.walker_patrol.long()]
+    pn = wn[traffic.walker_patrol.long()]
     head = torch.where(dist < 1.0, traffic.walker_head + 1,
                        traffic.walker_head)
     # polyline exhausted -> loop back to its start
     at_end = head >= pn - 1
     head = torch.where(at_end, 0, head)
-    s = _rows(scene.patrol_xy, traffic.walker_patrol,
-              torch.zeros_like(head), 2)
+    s = _rows(wxy, traffic.walker_patrol, torch.zeros_like(head), 2)
     _, snormal = _unit_normal(s[..., 0, :], s[..., 1, :])
     new_xy = torch.where(at_end[..., None],
                          s[..., 0, :] + off[..., None] * snormal, new_xy)
@@ -384,7 +401,6 @@ def step_traffic(scene, cfg: EnvConfig, traffic: TrafficState,
     """One tick for every NPC of every env. ``sim_time`` (N,) is the time
     after the tick (light phases); ``cross_coin`` (N, W) uniform draws
     decide the walkers' crossings."""
-    _check_cfg(scene, cfg)
     n, K = traffic.veh_patrol.shape
     W = traffic.walker_patrol.shape[1]
     if K > 0:

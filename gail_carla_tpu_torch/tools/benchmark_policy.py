@@ -8,9 +8,9 @@ and reading the CSVs.
 The policy is ``ModelConfig()`` on the ``--obs-mode`` BEV (``bev``: the
 CUDA kernel B1 renders it on the card; ``bev6``: B2), with ``--expert``
 the scripted expert instead (the imitation ceiling), which also runs at
-``--obs-mode state``. ``--town`` (a reconstructed reference town) needs
-the town importers, which are not ported yet (ROADMAP A7), and raises; so
-does a policy at ``--obs-mode state`` (``STATE_POLICY_ERROR``).
+``--obs-mode state``. ``--town`` benchmarks a reconstructed reference
+town (scene/town_import.py) instead of the grid. A policy at
+``--obs-mode state`` raises (``STATE_POLICY_ERROR``).
 
 Usage (on the card unless ``--device cpu``):
     python -m gail_carla_tpu_torch.tools.benchmark_policy [--ckpt DIR]
@@ -133,8 +133,7 @@ def main(argv=None):
     p.add_argument("--ckpt", default=None)
     p.add_argument("--town", default=None,
                    help="benchmark on a reconstructed reference town "
-                        "(e.g. Town01) instead of the procedural grid; "
-                        "needs the town importers (not ported yet)")
+                        "(e.g. Town01) instead of the procedural grid")
     p.add_argument("--route-file", default=None,
                    help="route pack for --town (routes_training.xml "
                         "default; Town02/05 only exist in "

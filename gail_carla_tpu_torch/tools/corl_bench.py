@@ -16,8 +16,8 @@ the traffic-free task types the two protocols coincide.
 Reuses ``nocrash_bench.run_tier`` (the same latched success loop) on
 ``envs/suites.py::corl2017_suite``; only the suite builder and the
 task-type axis differ. ``main`` benchmarks the reconstructed towns
-(``--town``, Town01 by default), which need the town importers (ROADMAP
-A7), and raises until they are ported.
+(``--town``, Town01 by default: scene/town_import.py, on the reference's
+data at ``<repo>/reference``).
 
 Usage (on the card unless ``--device cpu``):
   python -m gail_carla_tpu_torch.tools.corl_bench --ckpt <dir> \

@@ -190,8 +190,8 @@ def main(argv=None):
     p.add_argument("--max-steps", type=int, default=6000)
     p.add_argument("--no-cameras", action="store_true")
     p.add_argument("--town", default=None,
-                   help="generate on a reconstructed town (not ported "
-                        "yet: ROADMAP A7)")
+                   help="generate on a reconstructed town (e.g. Town01) "
+                        "instead of the reference grid")
     p.add_argument("--compliant", action="store_true",
                    help="expert obeys signals (obey_signals=True)")
     p.add_argument("--weather", default="ClearNoon",

@@ -67,8 +67,8 @@ def main(argv=None):
     p.add_argument("--smoke", action="store_true",
                    help="tiny scene + few epochs")
     p.add_argument("--town", default=None,
-                   help="train on a reconstructed town (not ported yet: "
-                        "ROADMAP A7)")
+                   help="train on a reconstructed town (e.g. Town01) "
+                        "instead of the grid")
     p.add_argument("--obs-mode", default=None, choices=["bev", "bev6"])
     p.add_argument("--compliant-demos", action="store_true",
                    help="expert obeys signals when generating demos")

@@ -18,8 +18,9 @@ the train/new-weather split only varies the episode seeds here (2021 and
 ``run_tier`` runs on any suite's scene, the grid suites of
 ``envs/suites.py`` included (``nocrash_suite(background_traffic=...)``).
 ``main`` benchmarks the reconstructed towns (``--town``, Town01 by
-default), which need the town importers (ROADMAP A7): it raises until
-they are ported, as the JAX tool does without the reference's data.
+default: scene/town_import.py, on the reference's data at
+``<repo>/reference``); without that data it raises, as the JAX tool
+does.
 
 Usage (on the card unless ``--device cpu``):
   python -m gail_carla_tpu_torch.tools.nocrash_bench --ckpt <dir> \

@@ -33,8 +33,11 @@ on one rank or on many.
 
 ``--obs-mode state`` trains with ``algo="ppo"`` only (``--params`` sets
 it): the reference's WDGAIL critic fails on state vectors, and the port
-raises ``NotImplementedError`` for it before the demos. Not ported yet,
-and raising too: the town presets (ROADMAP A7, the town importers).
+raises ``NotImplementedError`` for it before the demos. The town presets
+(``town01``, ``town03``, ``town04``) train on reconstructed reference
+towns (scene/town_import.py), which read the reference's data at
+``<repo>/reference`` (``tools/synthetic_town.py`` writes a synthetic tree
+of the same layout).
 """
 from __future__ import annotations
 
@@ -73,12 +76,13 @@ EXPERT_MAX_ROWS, VAL_ROWS = 12288, 1024
 
 
 def make_scene(scene_kwargs, device="cuda"):
-    """Scene dispatch: the procedural grid benchmark. ``{"town": ...}``
-    (a reconstructed reference town) needs the town importers."""
+    """Scene dispatch: ``{"town": "Town01"}`` builds the reconstructed
+    reference town (scene/town_import.py); otherwise the procedural grid
+    benchmark."""
     if "town" in scene_kwargs:
-        raise NotImplementedError(
-            "town scenes need the town importers, which are not ported "
-            "yet (ROADMAP A7)")
+        from gail_carla_tpu_torch.scene.town_import import make_town_scene
+
+        return make_town_scene(**scene_kwargs, device=device)
     return make_benchmark_scene(**scene_kwargs, device=device)
 
 
@@ -103,8 +107,9 @@ def make_presets():
         scene=dict(n_routes=10, nx=4, ny=4, block=100.0, min_length=400.0),
         demo_steps=4000,
     )
-    # the reference's benchmark on reconstructed towns
-    # (gail_carla_tpu/train.py:70-110); their scenes need ROADMAP A7
+    # the reference's ACTUAL benchmark: reconstructed Town01, training
+    # routes 0-9 (route 3 held out), params_variable.json:10-14; the
+    # multi-lane towns Town03/Town04 (gail_carla_tpu/train.py:78-108)
     town01 = dict(
         env=EnvConfig(train=True),
         model=ModelConfig(),

@@ -243,21 +243,46 @@ def test_benchmark_main_prints_jax_keys(expert_rows, capsys):
     assert all(r["steps"] == 3 for r in rows)
 
 
-def test_bench_clis_wait_on_the_town_importers():
+def test_bench_clis_wait_on_the_town_importers(tmp_path, capsys,
+                                               monkeypatch):
     """The NoCrash and CoRL CLIs benchmark the reconstructed towns
-    (``--town Town01`` by default): they raise until the town importers
-    are ported, and keep the JAX tools' ``--ckpt``/``--expert`` error;
-    so does ``benchmark_policy --town``. A policy at ``obs_mode="state"``
-    raises as the JAX tool fails (its conv policy cannot take state
-    vectors); the expert at ``"state"`` runs
-    (``tests/test_torch_state_learner.py``)."""
-    for main in (nocrash_bench.main, corl_bench.main):
-        with pytest.raises(NotImplementedError, match="A7"):
-            main(["--expert", "--device", "cpu"])
-        with pytest.raises(SystemExit):
-            main(["--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="A7"):
-        benchmark_policy.main(["--town", "Town01", "--device", "cpu"])
+    (``--town Town01`` by default), as ``benchmark_policy --town`` does:
+    without the reference's data they raise FileNotFoundError, nothing
+    falls back to the grid; on a synthetic reference tree
+    (``tools/synthetic_town.py``) each runs the expert on the town and
+    prints its table. They keep the JAX tools' ``--ckpt``/``--expert``
+    error. A policy at ``obs_mode="state"`` raises as the JAX tool fails
+    (its conv policy cannot take state vectors); the expert at
+    ``"state"`` runs (``tests/test_torch_state_learner.py``)."""
+    from gail_carla_tpu_torch.tools import synthetic_town
+
+    with synthetic_town.reference_tree(str(tmp_path / "none")):
+        for main in (nocrash_bench.main, corl_bench.main):
+            with pytest.raises(FileNotFoundError):
+                main(["--expert", "--device", "cpu"])
+            with pytest.raises(SystemExit):
+                main(["--device", "cpu"])
+        with pytest.raises(FileNotFoundError):
+            benchmark_policy.main(["--town", "Town01", "--device", "cpu"])
+    root = str(tmp_path / "reference")
+    synthetic_town.write_tree(root, n_routes=4, n_pairs=3)
+    one = ["--expert", "--weather", "train", "--episodes", "1", "--device",
+           "cpu"]
+    # 3 steps per episode (corl_bench has no --max-steps)
+    monkeypatch.setattr(corl_bench, "MAX_STEPS", {"straight": 3})
+    with synthetic_town.reference_tree(root, str(tmp_path / "cache")):
+        capsys.readouterr()
+        table = nocrash_bench.main(one + ["--traffic", "regular",
+                                          "--max-steps", "3"])
+        assert list(table) == ["regular/train"]
+        assert table["regular/train"]["steps_run"] == [3]
+        table = corl_bench.main(one + ["--task", "straight"])
+        assert list(table) == ["straight/train"]
+        benchmark_policy.main(["--town", "Town01", "--expert",
+                               "--max-steps", "3", "--device", "cpu"])
+        lines = capsys.readouterr().out.strip().splitlines()
+        assert [json.loads(x)["town"] for x in lines[:2]] == ["Town01"] * 2
+        assert len(json.loads(lines[2])["routes"]) == 4
     with pytest.raises(NotImplementedError, match="obs_mode='state'"):
         benchmark_policy.benchmark(scene_kwargs=dict(SMOKE), device="cpu",
                                    obs_mode="state", expert=False,

@@ -121,15 +121,19 @@ def test_endless_suite_matches_jax():
     assert port[1].endless_extension
 
 
-def test_unported_suite_options_raise():
-    """The reconstructed towns need the town importers (ROADMAP A7): they
-    raise, nothing falls back to the grid. Scripted scenario actors are
-    ported (``tests/test_torch_scenario_actors.py``), on generated scenes
-    only, as in the JAX suite."""
-    for fn in (suites.leaderboard_suite, suites.nocrash_suite,
-               suites.corl2017_suite):
-        with pytest.raises(NotImplementedError, match="A7"):
-            fn(town="Town01", device="cpu")
+def test_unported_suite_options_raise(tmp_path):
+    """The reconstructed towns are ported (their suites against JAX:
+    ``tests/test_torch_town_env.py``); without the reference's data they
+    raise FileNotFoundError, nothing falls back to the grid. Scripted
+    scenario actors are ported (``tests/test_torch_scenario_actors.py``),
+    on generated scenes only, as in the JAX suite."""
+    from gail_carla_tpu_torch.tools.synthetic_town import reference_tree
+
+    with reference_tree(str(tmp_path / "none")):
+        for fn in (suites.leaderboard_suite, suites.nocrash_suite,
+                   suites.corl2017_suite):
+            with pytest.raises(FileNotFoundError):
+                fn(town="Town01", device="cpu")
     with pytest.raises(ValueError, match="generated scenes"):
         suites.leaderboard_suite(town="Town01", scenario_actors={0: []},
                                  device="cpu")

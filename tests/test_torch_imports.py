@@ -41,6 +41,14 @@ PARALLEL_AND_TOOL_MODULES = (
     "gail_carla_tpu_torch.tools.export_map",
     "gail_carla_tpu_torch.tools.plot_results",
 )
+# the town importers and their tools (h5py is imported inside the one pack
+# reader, scene/h5_maps.py::read_pack, and the synthetic tree's writer)
+TOWN_MODULES = (
+    "gail_carla_tpu_torch.scene.h5_maps",
+    "gail_carla_tpu_torch.scene.town_import",
+    "gail_carla_tpu_torch.tools.synthetic_town",
+    "gail_carla_tpu_torch.tools.town_fidelity",
+)
 
 
 def _port_files():
@@ -93,10 +101,10 @@ def test_port_imports_with_jax_blocked():
     """Import every port module and chip_smoke (without running it) in a
     fresh interpreter where JAX and the JAX package cannot be imported;
     the env API, the policy benchmarks, the state observation, the
-    data-parallel learner, the GPS expert and the host tools are among
-    them."""
-    assert set(ENV_API_MODULES + STATE_MODULES
-               + PARALLEL_AND_TOOL_MODULES) <= set(_port_modules())
+    data-parallel learner, the GPS expert, the host tools and the town
+    importers are among them."""
+    assert set(ENV_API_MODULES + STATE_MODULES + PARALLEL_AND_TOOL_MODULES
+               + TOWN_MODULES) <= set(_port_modules())
     code = "\n".join([
         "import importlib, sys",
         f"for name in {BLOCKED!r}:",
@@ -140,12 +148,15 @@ def test_entry_points_refuse_a_missing_card():
     from gail_carla_tpu_torch.convert import init_policy
     from gail_carla_tpu_torch.device import resolve_device
     from gail_carla_tpu_torch.scene.scene import make_benchmark_scene
+    from gail_carla_tpu_torch.scene.town_import import make_town_scene
 
     with pytest.raises(RuntimeError, match="no CUDA device"):
         resolve_device()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         make_benchmark_scene(n_routes=1, nx=2, ny=2, block=60.0,
                              min_length=50.0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_town_scene("Town01")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         init_policy(ModelConfig(conv_channels=(4,), hidden_size=8,
                                 head_size=4), (3, 16, 16))

@@ -54,9 +54,12 @@ def _t(a):
     return torch.from_numpy(np.array(a))
 
 
-def jax_traffic_draws(k_traffic, n_veh, n_walkers, n_patrols):
+def jax_traffic_draws(k_traffic, n_veh, n_walkers, n_patrols,
+                      n_walk_paths=None):
     """The draws ``reset_traffic`` makes from one env's key, as numpy-able
-    arrays in the order of ``TrafficResetDraws``."""
+    arrays in the order of ``TrafficResetDraws``; the walkers draw from
+    ``n_walk_paths`` sidewalk paths when the scene has them, else from the
+    patrols."""
     import jax
 
     k_p, k_h, k_s, k_wx, k_wg, k_ws = jax.random.split(k_traffic, 6)
@@ -68,14 +71,15 @@ def jax_traffic_draws(k_traffic, n_veh, n_walkers, n_patrols):
         # jitter and target speed come from the same key in JAX
         jax.random.uniform(k_s, vc),
         jax.random.uniform(k_s, (n_veh,), minval=4.5, maxval=6.5),
-        jax.random.randint(k_wx, (n_walkers,), 0, n_patrols),
+        jax.random.randint(k_wx, (n_walkers,), 0,
+                           n_walk_paths or n_patrols),
         jax.random.uniform(k_wg, (n_walkers,)),
         jax.random.uniform(k_side, (n_walkers,)),
         jax.random.uniform(k_speed, (n_walkers,), minval=1.0, maxval=2.0),
     )
 
 
-def jax_reset_draws(k_reset, cfg, n_patrols):
+def jax_reset_draws(k_reset, cfg, n_patrols, n_walk_paths=None):
     """(restart, pos, traffic draws) that ``reset_env`` makes from one
     env's key, and the key the reset state carries."""
     import jax
@@ -83,10 +87,11 @@ def jax_reset_draws(k_reset, cfg, n_patrols):
     rng, k_restart, k_pos, k_traffic = jax.random.split(k_reset, 4)
     return rng, (jax.random.uniform(k_restart), jax.random.uniform(k_pos),
                  jax_traffic_draws(k_traffic, cfg.n_npc_vehicles,
-                                   cfg.n_npc_walkers, n_patrols))
+                                   cfg.n_npc_walkers, n_patrols,
+                                   n_walk_paths))
 
 
-def jax_step_draws_raw(rngs, done, cfg, n_patrols):
+def jax_step_draws_raw(rngs, done, cfg, n_patrols, n_walk_paths=None):
     """Per env, every draw ``step_env`` makes from its pre-step key: the
     auto-reset's draws, the GNSS noise of the observe after the (possible)
     reset, and the walkers' crossing coin, as JAX arrays (jittable with
@@ -96,8 +101,8 @@ def jax_step_draws_raw(rngs, done, cfg, n_patrols):
 
     def one(r, d):
         rng_next, k_reset, k_npc = jax.random.split(r, 3)
-        fresh, (restart, pos, traffic) = jax_reset_draws(k_reset, cfg,
-                                                         n_patrols)
+        fresh, (restart, pos, traffic) = jax_reset_draws(
+            k_reset, cfg, n_patrols, n_walk_paths)
         _, k = jax.random.split(jnp.where(d, fresh, rng_next))
         coin = jax.random.uniform(k_npc, (cfg.n_npc_walkers,))
         return restart, pos, traffic, jax.random.normal(k, (2,)), coin
@@ -115,19 +120,19 @@ def step_draws_from_raw(raw):
     )
 
 
-def jax_step_draws(rngs, done, cfg, n_patrols):
+def jax_step_draws(rngs, done, cfg, n_patrols, n_walk_paths=None):
     """``jax_step_draws_raw`` as a port ``StepDraws``."""
     return step_draws_from_raw(jax_step_draws_raw(rngs, done, cfg,
-                                                  n_patrols))
+                                                  n_patrols, n_walk_paths))
 
 
-def jax_batch_reset_draws(key, n, cfg, n_patrols):
+def jax_batch_reset_draws(key, n, cfg, n_patrols, n_walk_paths=None):
     """The draws of ``reset_batch(key)`` over n envs: ``ResetDraws`` and
     the first observe's GNSS noise."""
     import jax
 
     def one(k):
-        rng, draws = jax_reset_draws(k, cfg, n_patrols)
+        rng, draws = jax_reset_draws(k, cfg, n_patrols, n_walk_paths)
         _, kg = jax.random.split(rng)
         return draws, jax.random.normal(kg, (2,))
 
@@ -372,19 +377,54 @@ def test_dynamic_collisions_and_hazards_match_jax():
 
 
 def test_unported_traffic_options_raise(scenes):
-    """Walkers on imported sidewalk centrelines are not ported (they come
-    with the town importers): reset and step refuse them instead of
-    running without. Scenario actors are ported and run
-    (``tests/test_torch_scenario_actors.py``)."""
-    port_scene, _ = scenes
+    """Every traffic option runs (the name is kept from when walkers on
+    sidewalk centrelines raised): scenario actors
+    (``tests/test_torch_scenario_actors.py``) and walkers on a scene's
+    ``walk_*`` tables, here 5 patrol polylines handed in as sidewalk paths
+    with signed crossing offsets: reset and 12 steps with JAX's draws
+    injected equal JAX's traffic at the closed-loop test's tolerances (the
+    reconstructed town's paths: ``tests/test_torch_town_env.py``)."""
+    import jax
+    import jax.numpy as jnp
+    from gail_carla_tpu.sim import env as jax_env
+
+    port_scene, jax_scene = scenes
     rid = torch.tensor([0, 1], dtype=torch.int32)
     sa = dataclasses.replace(ENV, n_scenario_actors=1)
     st, _, _ = port_env.reset_batch(port_scene, sa, rid)
     port_env.step_batch(port_scene, sa, st, torch.zeros((2, 2)))
     assert st.traffic.veh_patrol.shape == (2, ENV.n_npc_vehicles + 1)
-    sidewalks = dataclasses.replace(port_scene, walk_xy=port_scene.patrol_xy)
-    with pytest.raises(NotImplementedError, match="sidewalk"):
-        port_env.reset_batch(sidewalks, ENV, rid)
-    st, _, _ = port_env.reset_batch(port_scene, ENV, rid)
-    with pytest.raises(NotImplementedError, match="sidewalk"):
-        port_env.step_batch(sidewalks, ENV, st, torch.zeros((2, 2)))
+
+    paths = 5
+    cross = np.array([9.0, -9.0, 8.5, -8.5, 10.0], np.float32)
+    walk = dict(walk_xy=port_scene.patrol_xy[:paths],
+                walk_yaw=port_scene.patrol_yaw[:paths],
+                walk_n=port_scene.patrol_n[:paths],
+                walk_cross=torch.from_numpy(cross))
+    sidewalks = dataclasses.replace(port_scene, **walk)
+    jax_sidewalks = jax_scene.replace(
+        **{k: jnp.asarray(v.numpy()) for k, v in walk.items()})
+    n_patrols = port_scene.patrol_xy.shape[0]
+    n = 4
+    key = jax.random.PRNGKey(3)
+    reset = jax.jit(lambda k, r: jax_env.reset_batch(jax_sidewalks, ENV,
+                                                     k, r))
+    js, _, _ = reset(key, jnp.asarray(np.arange(n) % 2))
+    draws, gnss = jax_batch_reset_draws(key, n, ENV, n_patrols, paths)
+    ps, _, _ = port_env.reset_batch(sidewalks, ENV,
+                                    _t(np.arange(n, dtype=np.int32) % 2),
+                                    draws=draws, gnss_noise=gnss)
+    compare_traffic(js.traffic, ps.traffic, "reset on sidewalk paths")
+    assert float(ps.traffic.walker_off.abs().max()) == 0.0
+    assert int(ps.traffic.walker_patrol.max()) < paths
+    step = jax.jit(lambda s, a: jax_env.step_batch(jax_sidewalks, ENV, s, a))
+    step_draws = jax.jit(lambda r, d: jax_step_draws_raw(r, d, ENV,
+                                                         n_patrols, paths))
+    actions = np.tile(np.float32([[0.0, 0.5]]), (n, 1))
+    for t in range(12):
+        rngs = js.rng
+        js, jout = step(js, jnp.asarray(actions))
+        sd = step_draws_from_raw(step_draws(rngs, jout.done))
+        ps, _ = port_env.step_batch(sidewalks, ENV, ps, _t(actions),
+                                    **sd._asdict())
+        compare_traffic(js.traffic, ps.traffic, f"sidewalk step {t}")

@@ -195,15 +195,20 @@ def test_main_runs_and_resumes_bit_equal(tmp_path):
 
 
 def test_run_refuses_what_is_not_ported(tmp_path):
-    """Town scenes (ROADMAP A7) raise instead of falling back; sharded
-    training without an initialised process group raises instead of
-    training on one rank; a demo tree without demos raises instead of
-    training on generated ones."""
+    """A town scene without the reference's data raises instead of
+    falling back to the grid (the town path on a synthetic tree:
+    ``tests/test_torch_town_env.py``); sharded training without an
+    initialised process group raises instead of training on one rank; a
+    demo tree without demos raises instead of training on generated
+    ones."""
+    from gail_carla_tpu_torch.tools import synthetic_town
+
     smoke = PRESET
     common = (smoke["env"], smoke["model"], smoke["train"])
-    with pytest.raises(NotImplementedError, match="A7"):
-        train.run(*common, {"town": "Town01"}, 10, device="cpu",
-                  log_dir=str(tmp_path))
+    with synthetic_town.reference_tree(str(tmp_path / "none")):
+        with pytest.raises(FileNotFoundError):
+            train.run(*common, {"town": "Town01"}, 10, device="cpu",
+                      log_dir=str(tmp_path))
     for route in smoke["train"].routes:
         ep = tmp_path / f"route_{route:02d}" / "ep_00"
         ep.mkdir(parents=True)
