@@ -116,7 +116,21 @@ the training entry point ``train.run``.
   preset (``ModelConfig()``, 10 envs, 192 px; ``TOWN_DEMO_STEPS`` demo
   steps and episode steps, ``TOWN_STEPS`` steps per env of one update,
   the evaluation on held-out route 3) and ``run_tier`` on the town's
-  NoCrash suite with the bev6 policy.
+  NoCrash suite with the bev6 policy;
+- the ``"scale"`` path, the full-pipeline scale bench
+  (``tools/wdgail_scale_bench.py``) through its ``main`` in bev6 on the
+  reference scene at ``SCALE_ENVS`` envs x ``SCALE_STEPS`` steps with
+  ``--phases``, ``--updates 1`` and ``SCALE_DEMO_STEPS`` demo steps, in a
+  process of this script (``--scale``) started beside the reference
+  phase: its set-up (scene, demos, expert buffer) runs beside that
+  phase, its timed updates and phases alone once that phase has ended.
+  Its record must have the tool's keys and a positive ``value``, each
+  phase its time, the last update finite losses and weights, the expert
+  buffer one critic minibatch, and B2 one launch per render (B1 none); it
+  prints each phase's ms and share, the rollout's ms per env step, the
+  peak memory, and then the bev6 rollout step at ``SCALE_BREAKDOWN_ENVS``
+  envs. B1 and B2 are held against their plain versions at the batches
+  the tool launches, ``SCALE_LAUNCH_ENVS`` envs of distinct poses.
 
 Each kernel is checked against its plain version on the same render
 states of the rollout's 256 envs, at W=192 and W=100, with envs placed on
@@ -239,6 +253,7 @@ from gail_carla_tpu_torch.tools import gen_trajectories as gen_mod
 from gail_carla_tpu_torch.tools import learn_bc as learn_bc_mod
 from gail_carla_tpu_torch.tools import nocrash_bench
 from gail_carla_tpu_torch.tools import synthetic_town
+from gail_carla_tpu_torch.tools import wdgail_scale_bench as scale_mod
 from gail_carla_tpu_torch.tools.corl_bench import TASK_TYPES
 from gail_carla_tpu_torch.train import make_presets
 from gail_carla_tpu_torch.utils import checkpoint as ckpt_mod
@@ -347,6 +362,27 @@ GPS_STEPS, GPS_MIN_M, GPS_CMP_STEPS = 300, 40.0, 50
 TOWN_ROUTES, TOWN_ROUTE_M, TOWN_DEMO_STEPS, TOWN_STEPS = (
     10, (60.0, 140.0), 280, 64)
 SERRATE_PX, SERRATED_ENVS = 2, 64
+# the scale phase: tools/wdgail_scale_bench.py's main on the card in
+# bev6 at SCALE_ENVS envs x SCALE_STEPS steps (its default), --mb and
+# --gail-batch scaled from the tool's 8,192 and 4,096 at 4,096 envs,
+# --updates 1, --phases and SCALE_DEMO_STEPS demo steps: enough for the
+# expert buffer to fill one --gail-batch critic minibatch (the buffer
+# holds the steps of the episodes that end; on the card the nine
+# training routes' first episodes end at steps 802 (route 2), 1,086 (7)
+# and 1,110 (1), the others after 1,150); its time limit
+SCALE_ENVS, SCALE_STEPS, SCALE_DEMO_STEPS = 1024, 16, 1120
+SCALE_TIMEOUT_S = 300
+# the bev6 rollout step's breakdown at the tool's default 4,096 envs; the
+# batches the tool launches B1 and B2 at: its default PPO minibatch under
+# --no-store-obs, its default rollout and critic minibatch, this phase's
+# rollout
+SCALE_BREAKDOWN_ENVS = 4096
+SCALE_LAUNCH_ENVS = (8192, 4096, SCALE_ENVS)
+# the keys of the tool's final record and its phases, as the JAX tool
+# prints them
+SCALE_KEYS = ("metric", "n_envs", "obs_mode", "steps_per_update",
+              "sec_per_update", "value", "unit", "hours_to_10M_steps")
+SCALE_PHASES = ("rollout", "disc epoch", "relabel", "gae", "ppo")
 SEED = 0
 T0 = time.time()
 
@@ -1915,25 +1951,27 @@ def suites_path(scene, env_cfg, env6_cfg, dev):
     for lib in (bev_cuda.LIB, bev6_cuda.LIB):
         lib.launches = 0
     t = time.time()
-    registry_envs(dev, w)
+    made = registry_envs(dev, w)
     progress("suites (a) registry", t)
     t = time.time()
     vec_env_run(dev)
     progress("suites (b) vector env", t)
     net6 = init_policy(ModelConfig(), (6, w, w), seed=SEED, device=dev)
     t = time.time()
+    # the suites (a) made are not built again
     for name, env_id in NOCRASH_IDS.items():
-        env = registry.make(env_id, device=dev)
+        env = made.get(env_id) or registry.make(env_id, device=dev)
         density = (env.cfg.n_npc_vehicles, env.cfg.n_npc_walkers)
         if density != NOCRASH_TRAFFIC["Town01"][name]:
             raise AssertionError(f"{env_id}: not the {name} densities")
         tier(f"NoCrash {name}", env.scene, env.cfg, net6, False)
-    env = registry.make(NOCRASH_IDS["regular"], device=dev)
-    tier("NoCrash regular", env.scene, env.cfg, None, True)
+        if name == "regular":
+            regular = env
+    tier("NoCrash regular", regular.scene, regular.cfg, None, True)
     progress("suites (c) NoCrash", t)
     t = time.time()
     for name, env_id in CORL_IDS.items():
-        env = registry.make(env_id, device=dev)
+        env = made.get(env_id) or registry.make(env_id, device=dev)
         tier(f"CoRL {name}", env.scene, env.cfg, net6, False)
     tier("CoRL navigation_dynamic", env.scene, env.cfg, None, True)
     progress("suites (d) CoRL2017", t)
@@ -2574,17 +2612,27 @@ def start_ranks(tmp: str):
         procs.append((subprocess.Popen(
             [sys.executable, os.path.abspath(__file__), "--sharded-rank",
              str(r), tmp], stdout=log, stderr=subprocess.STDOUT), log))
-    atexit.register(stop_ranks, procs)
+    atexit.register(stop_procs, procs)
     return procs
 
 
-def stop_ranks(procs) -> None:
-    """Kills every rank still running and closes the logs."""
+def stop_procs(procs) -> None:
+    """Kills every process of ``procs`` still running and closes the
+    logs."""
     for p, log in procs:
         if p.poll() is None:
             p.kill()
             p.wait()
         log.close()
+
+
+def wait_file(path: str, parent: int) -> None:
+    """Sleeps until ``path`` exists; exits if the process ``parent`` that
+    writes it is gone."""
+    while not os.path.exists(path):
+        if os.getppid() != parent:
+            raise SystemExit(1)
+        time.sleep(0.05)
 
 
 def _digests(state) -> dict:
@@ -2684,11 +2732,7 @@ def sharded_rank(rank: int, tmp: str) -> int:
         open(os.path.join(tmp, f"{UPDATED_FILE}{rank}"), "w").close()
         # time the all-reduce only once the main process waits for it (and
         # give up if it has gone)
-        go = os.path.join(tmp, GO_FILE)
-        while not os.path.exists(go):
-            if os.getppid() != parent:
-                return 1
-            time.sleep(0.05)
+        wait_file(os.path.join(tmp, GO_FILE), parent)
         buf = torch.zeros(policy_bytes // 4, device=dev)
         ms = []
         for i in range(7):
@@ -2731,7 +2775,7 @@ def rank_results(procs, tmp: str):
     except subprocess.TimeoutExpired:
         pass
     finally:
-        stop_ranks(procs)
+        stop_procs(procs)
     bad = [r for r, (p, _) in enumerate(procs) if p.returncode != 0]
     for r in bad:
         tail = open(os.path.join(tmp, f"rank{r}.log")).read()[-3000:]
@@ -3169,6 +3213,204 @@ def town_path(env_cfg: EnvConfig, env6_cfg: EnvConfig, dev):
     return b1, b2, err, err6
 
 
+def scale_argv():
+    """The tool's argv of the scale phase (``SCALE_ENVS`` envs, ``--mb``
+    and ``--gail-batch`` scaled from the tool's 8,192 and 4,096 at 4,096
+    envs)."""
+    return ["--obs-mode", "bev6", "--n-envs", str(SCALE_ENVS),
+            "--steps-per-env", str(SCALE_STEPS),
+            "--mb", str(8192 * SCALE_ENVS // 4096),
+            "--gail-batch", str(4096 * SCALE_ENVS // 4096),
+            "--updates", "1", "--demo-steps", str(SCALE_DEMO_STEPS),
+            "--phases"]
+
+
+def scale_bench(tmp: str) -> int:
+    """The scale phase's process (``--scale <tmp>``), started beside the
+    reference phase: runs the tool's ``main(scale_argv())`` on the card
+    with every launch count set to 0 just before and read just after. Its
+    one gate: the learner's ``init_state``, once the set-up (scene, demos,
+    expert buffer) is done, waits for ``GO_FILE``, which the main process
+    writes once the reference phase has ended, so the timed updates and
+    phases share the card and the host with nothing. Raises unless the
+    last update's metrics and weights are finite. Writes ``scale.json``:
+    the record, the tool's output, B1's and B2's launches, the peak device
+    memory, the last update's metrics, and the set-up's, the gate's and
+    the timed part's seconds."""
+    parent = os.getppid()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    # its host work is launches: leave the cores to the reference phase
+    torch.set_num_threads(1)
+    init_state, update = WDGAILLearner.init_state, WDGAILLearner.update
+    times, last = {}, {}
+
+    def gated_init_state(self, *args, **kwargs):
+        times["gate"] = time.time()
+        wait_file(os.path.join(tmp, GO_FILE), parent)
+        times["go"] = time.time()
+        return init_state(self, *args, **kwargs)
+
+    def kept_update(self, *args, **kwargs):
+        last["state"], last["metrics"] = update(self, *args, **kwargs)
+        return last["state"], last["metrics"]
+
+    for lib in (bev_cuda.LIB, bev6_cuda.LIB):
+        lib.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    out, err = io.StringIO(), io.StringIO()
+    t = time.time()
+    WDGAILLearner.init_state = gated_init_state
+    WDGAILLearner.update = kept_update
+    try:
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            record = scale_mod.main(scale_argv())
+        torch.cuda.synchronize()
+    finally:
+        WDGAILLearner.init_state, WDGAILLearner.update = init_state, update
+    t_end = time.time()
+    state = last["state"]
+    check_finite("the scale bench's last update", last["metrics"],
+                 [("policy", state.policy), ("critic", state.disc)])
+    res = dict(record=record, stdout=out.getvalue(), stderr=err.getvalue(),
+               b1=bev_cuda.LIB.launches, b2=bev6_cuda.LIB.launches,
+               peak=torch.cuda.max_memory_allocated(),
+               metrics={k: float(v) for k, v in last["metrics"].items()},
+               setup_s=times["gate"] - t, gate_s=times["go"] - times["gate"],
+               timed_s=t_end - times["go"])
+    with open(os.path.join(tmp, "scale.json"), "w") as f:
+        json.dump(res, f)
+    return 0
+
+
+def start_scale(tmp: str):
+    """Starts ``scale_bench`` in a process of this script; it is stopped
+    at this process's exit if still running."""
+    log = open(os.path.join(tmp, "scale.log"), "w")
+    proc = [(subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--scale", tmp],
+        stdout=log, stderr=subprocess.STDOUT), log)]
+    atexit.register(stop_procs, proc)
+    return proc
+
+
+def scale_results(proc, tmp: str) -> dict:
+    """Lets the scale process time its updates (``GO_FILE``), waits for it
+    (at most ``SCALE_TIMEOUT_S`` s, then kills it) and returns its
+    ``scale.json``; raises if it failed. Prints how long its set-up ran
+    beside the reference phase, how long this process waited for it
+    beyond its timed part, and so what running it here after the
+    reference phase would have cost more."""
+    t = time.time()
+    open(os.path.join(tmp, GO_FILE), "w").close()
+    p = proc[0][0]
+    try:
+        p.wait(timeout=SCALE_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        stop_procs(proc)
+    waited = time.time() - t
+    if p.returncode != 0:
+        tail = open(os.path.join(tmp, "scale.log")).read()[-3000:]
+        print(f"  scale bench exited {p.returncode}:\n{tail}", flush=True)
+        raise AssertionError("the scale bench failed")
+    res = json.load(open(os.path.join(tmp, "scale.json")))
+    extra = waited - res["timed_s"]
+    print(f"  scale bench: set-up {res['setup_s']:.2f} s beside the "
+          f"reference phase, then {res['gate_s']:.2f} s at its gate; "
+          f"waited {waited:.2f} s for it, {extra:.2f} s beyond its timed "
+          f"{res['timed_s']:.2f} s: the overlap saved about "
+          f"{res['setup_s'] - extra:.2f} s", flush=True)
+    return res
+
+
+def scale_path(res: dict, scene, net6, dev):
+    """The scale phase's checks on ``scale_bench``'s result: its stderr
+    echoed; raises unless the final record has the tool's keys and a
+    finite positive ``value``, every phase printed its time, the expert
+    buffer fills a critic minibatch, B1 never ran and B2 ran once per
+    render: the expert buffer's chunks, and the rollout's steps and
+    bootstrap in both updates and in the four calls of the rollout phase.
+    Then the bev6 rollout step at ``SCALE_BREAKDOWN_ENVS`` envs
+    (``breakdown``), beside the host-speed marker's 256. Returns B2's
+    launches."""
+    err, record = res["stderr"], res["record"]
+    b1, b2 = res["b1"], res["b2"]
+    print(f"  wdgail_scale_bench {' '.join(scale_argv())}", flush=True)
+    for line in err.splitlines():
+        print(f"    {line}", flush=True)
+    last = json.loads(res["stdout"].strip().splitlines()[-1])
+    if tuple(last) != SCALE_KEYS or last != record:
+        raise AssertionError(f"scale bench record {last}")
+    if not (np.isfinite(last["value"]) and last["value"] > 0):
+        raise AssertionError(f"scale bench value {last['value']}")
+    ms = {}
+    for line in err.splitlines():
+        name, _, rest = line.partition(": ")
+        if name.startswith("phase ") and rest.endswith(" ms"):
+            ms[name[len("phase "):]] = float(rest[:-3].replace(",", ""))
+    if tuple(ms) != SCALE_PHASES:
+        raise AssertionError(f"scale bench phases {tuple(ms)}")
+    rows = int(err.split("expert buffer: ")[1].split()[0])
+    if rows < SCALE_ENVS:
+        raise AssertionError(f"the expert buffer's {rows} rows fill no "
+                             f"{SCALE_ENVS}-row critic minibatch: raise "
+                             "SCALE_DEMO_STEPS")
+    want = -(-rows // EXPERT_CHUNK) + (2 + 4) * (SCALE_STEPS + 1)
+    if b1 or b2 != want:
+        raise AssertionError(f"scale bench launches B1 {b1}, B2 {b2} "
+                             f"(expected 0 and {want})")
+    total = sum(ms.values())
+    print(f"  scale bench {SCALE_ENVS} envs x {SCALE_STEPS} steps (bev6): "
+          f"{last['value']} steps/s, {last['sec_per_update']} s per update; "
+          "phases " + ", ".join(
+              f"{k} {v:.0f} ms ({v / total:.1%})" for k, v in ms.items())
+          + f"; rollout {ms['rollout'] / SCALE_STEPS:.3f} ms per env step; "
+          f"expert buffer {rows} rows; peak memory "
+          f"{res['peak'] / 2**30:.2f} GiB; launches B1 {b1}, B2 {b2}; the "
+          "last update's " + ", ".join(
+              f"{k} {v:.6g}" for k, v in res["metrics"].items()
+              if "loss" in k), flush=True)
+
+    cfg = EnvConfig(train=True, obs_mode="bev6")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    routes = torch.tensor(make_presets()["reference"]["train"].routes,
+                          device=dev)
+    start = reset_batch(scene, cfg, routes[
+        torch.arange(SCALE_BREAKDOWN_ENVS, device=dev) % len(routes)], gen)
+    breakdown(scene, cfg, net6, gen, start,
+              bev6_cuda.render_bev6_cuda_batch)
+    return b2
+
+
+def scale_kernels(scene):
+    """B1 and B2 against their plain versions at the batches the tool
+    launches them at (``SCALE_LAUNCH_ENVS``): the first n of one set of
+    distinct jittered route poses, in the tool's configuration (no
+    traffic), one launch per batch. Raises unless every value is equal;
+    returns the max abs differences (B1, B2)."""
+    ren = route_poses(scene, max(SCALE_LAUNCH_ENVS), SEED + 6)
+    errs = []
+    for kernel, plain, cfg in (
+            (bev_cuda.render_bev_cuda_batch, bev_plain.render_bev_batch,
+             EnvConfig(train=True, obs_mode="bev")),
+            (bev6_cuda.render_bev6_cuda_batch, bev6_plain.render_bev6_batch,
+             EnvConfig(train=True, obs_mode="bev6"))):
+        name = "bev_raster" if cfg.obs_mode == "bev" else "bev6_raster"
+        want = plain(scene, cfg, ren)
+        err = 0.0
+        for n in SCALE_LAUNCH_ENVS:
+            got = kernel(scene, cfg, map_state(lambda a: a[:n], ren))
+            err = max(err, compare(name, got, want[:n],
+                                   f"W={cfg.bev_width} n={n} (one launch)"))
+            del got
+        del want
+        errs.append(err)
+    return tuple(errs)
+
+
 def kernel_line(name, source, replaces, launches, err, times):
     k_ms, p_ms, b_ms, b_by = times
     return {
@@ -3186,7 +3428,6 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
-
     t = time.time()
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -3268,18 +3509,33 @@ def main() -> int:
     # the timed phases wait for their updates to end ---
     shard_dir = tempfile.TemporaryDirectory()
     procs = start_ranks(shard_dir.name)
+    # --- so does the scale phase's set-up (scene, demos, expert buffer);
+    # its timed updates run once the reference phase has ended ---
+    scale_dir = tempfile.TemporaryDirectory()
+    scale_proc = start_scale(scale_dir.name)
 
     # --- end to end against the CPU (plain renderers, float32 model) ---
-    t = time.time()
+    t = t_part = time.time()
     quiet = dict(gnss_noise_deg=0.0, random_restart_prob=0.0)
     card_vs_cpu(scene, dataclasses.replace(env_cfg, **quiet), (3, w, w),
                 SEED)
     card_vs_cpu(scene, dataclasses.replace(env6_cfg, **quiet), (6, w, w),
                 SEED + 1)
+    progress("reference rollouts", t_part)
+    t_part = time.time()
     ref = train_card_vs_cpu(SEED + 2)
+    progress("reference update", t_part)
+    t_part = time.time()
     demos_card_vs_cpu(SEED + 3, dev)
+    progress("reference demos", t_part)
     progress("reference", t)
     wait_updated(procs, shard_dir.name)
+
+    # --- the full-pipeline scale bench: the whole update in bev6 ---
+    t = time.time()
+    scale_res = scale_results(scale_proc, scale_dir.name)
+    scale_dir.cleanup()
+    progress("scale bench", t)
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
@@ -3350,6 +3606,14 @@ def main() -> int:
     err, err6 = max(err, err_t), max(err6, err6_t)
     progress("town", t)
 
+    # --- the scale bench's checks, the bev6 step at 4,096 envs, and the
+    # kernels at the batches the tool launches them at ---
+    t = time.time()
+    launches6 += scale_path(scale_res, scene, net6, dev)
+    err_t, err6_t = scale_kernels(scene)
+    err, err6 = max(err, err_t), max(err6, err6_t)
+    progress("scale", t)
+
     torch.cuda.synchronize()
     print(json.dumps({"kernels": [
         kernel_line("bev_raster", "gail_carla_tpu_torch/csrc/bev_raster.cu",
@@ -3375,6 +3639,8 @@ if __name__ == "__main__":
         sys.exit(sharded_rank(int(sys.argv[2]), sys.argv[3]))
     if sys.argv[1:2] == ["--shard-cost"]:
         sys.exit(shard_cost())
+    if sys.argv[1:2] == ["--scale"]:
+        sys.exit(scale_bench(sys.argv[2]))
     try:
         sys.exit(main())
     finally:

@@ -49,6 +49,8 @@ TOWN_MODULES = (
     "gail_carla_tpu_torch.tools.synthetic_town",
     "gail_carla_tpu_torch.tools.town_fidelity",
 )
+# the full-pipeline scale bench
+SCALE_MODULES = ("gail_carla_tpu_torch.tools.wdgail_scale_bench",)
 
 
 def _port_files():
@@ -86,6 +88,7 @@ def _imported_roots(path):
 
 
 def test_port_sources_import_no_jax():
+    assert set(SCALE_MODULES) <= set(_port_modules())
     bad = []
     for path in _port_files():
         if not path.endswith(".py") or "/tests/" in path:
@@ -101,10 +104,10 @@ def test_port_imports_with_jax_blocked():
     """Import every port module and chip_smoke (without running it) in a
     fresh interpreter where JAX and the JAX package cannot be imported;
     the env API, the policy benchmarks, the state observation, the
-    data-parallel learner, the GPS expert, the host tools and the town
-    importers are among them."""
+    data-parallel learner, the GPS expert, the host tools, the town
+    importers and the scale bench are among them."""
     assert set(ENV_API_MODULES + STATE_MODULES + PARALLEL_AND_TOOL_MODULES
-               + TOWN_MODULES) <= set(_port_modules())
+               + TOWN_MODULES + SCALE_MODULES) <= set(_port_modules())
     code = "\n".join([
         "import importlib, sys",
         f"for name in {BLOCKED!r}:",
@@ -149,6 +152,7 @@ def test_entry_points_refuse_a_missing_card():
     from gail_carla_tpu_torch.device import resolve_device
     from gail_carla_tpu_torch.scene.scene import make_benchmark_scene
     from gail_carla_tpu_torch.scene.town_import import make_town_scene
+    from gail_carla_tpu_torch.tools import wdgail_scale_bench
 
     with pytest.raises(RuntimeError, match="no CUDA device"):
         resolve_device()
@@ -160,4 +164,7 @@ def test_entry_points_refuse_a_missing_card():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         init_policy(ModelConfig(conv_channels=(4,), hidden_size=8,
                                 head_size=4), (3, 16, 16))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        wdgail_scale_bench.main(["--n-envs", "2", "--steps-per-env", "4",
+                                 "--demo-steps", "1"])
     assert resolve_device("cpu").type == "cpu"
