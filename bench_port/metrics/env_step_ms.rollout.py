@@ -1,0 +1,9 @@
+"""ms per ``sim/env.py::step_batch`` (with ``sim/traffic.py``) at the
+cell's batch, over repeated calls timed alone after the window (host
+clock, synchronised)."""
+
+
+def read(ctx):
+    if ctx.get("entry") != "rollout":
+        return None
+    return 1e3 * ctx["phases"]["env_step"]
