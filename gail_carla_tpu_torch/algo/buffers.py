@@ -30,6 +30,7 @@ from gail_carla_tpu_torch.ops.bev6 import render_bev6_batch_auto
 from gail_carla_tpu_torch.ops.state_obs import (
     STATE_OBS_DIM, state_observation_batch,
 )
+from gail_carla_tpu_torch.utils.trace import span
 
 # rows rendered per pass when an expert buffer materialises its obs
 EXPERT_CHUNK = 512
@@ -85,11 +86,12 @@ def obs_batch(scene, cfg: EnvConfig, render_state, metrics):
     """The policy observation of a render-state batch and its metrics: the
     3-channel BEV (``obs_mode="bev"``), the 6-channel one (``"bev6"``) or
     the state vector (``"state"``, which reads the metrics)."""
-    if cfg.obs_mode == "state":
-        return state_observation_batch(scene, cfg, render_state, metrics)
-    if cfg.obs_mode == "bev6":
-        return render_bev6_batch_auto(scene, cfg, render_state)
-    return render_bev_batch_auto(scene, cfg, render_state)
+    with span("rollout.obs"):
+        if cfg.obs_mode == "state":
+            return state_observation_batch(scene, cfg, render_state, metrics)
+        if cfg.obs_mode == "bev6":
+            return render_bev6_batch_auto(scene, cfg, render_state)
+        return render_bev_batch_auto(scene, cfg, render_state)
 
 
 def _u8(mask: torch.Tensor) -> torch.Tensor:

@@ -38,6 +38,7 @@ from gail_carla_tpu_torch.sim.env import (
     RenderState, ResetDraws, StepDraws, reset_batch,
 )
 from gail_carla_tpu_torch.utils import running_mean_std as rms_mod
+from gail_carla_tpu_torch.utils.trace import span
 
 
 @dataclasses.dataclass
@@ -220,11 +221,12 @@ class WDGAILLearner:
         gen = state.generator
         n_epochs = wdgail_mod.warmup_epochs(tcfg, state.update_i + 1)
 
-        env_states, metrics, render, rollout, ep_stats = collect_rollout(
-            scene, env_cfg, state.policy, state.env_states, state.metrics,
-            state.render, gen, tcfg.steps_per_env, self.store_obs,
-            action_noise=d.action_noise, env_draws=d.env_draws,
-        )
+        with span("learner.rollout"):
+            env_states, metrics, render, rollout, ep_stats = collect_rollout(
+                scene, env_cfg, state.policy, state.env_states, state.metrics,
+                state.render, gen, tcfg.steps_per_env, self.store_obs,
+                action_noise=d.action_noise, env_draws=d.env_draws,
+            )
 
         disc_opt = state.disc_opt
         reward_rms, returns_acc = state.reward_rms, state.returns_acc
@@ -233,42 +235,50 @@ class WDGAILLearner:
             # no critic: GAE on the env reward (gail_coef 0, env_coef 1)
             z = torch.zeros((), device=self.device)
             pre = post = (z, z, z)
-            returns = compute_returns(
-                rollout.gail_rewards, rollout.env_rewards, rollout.values,
-                rollout.masks, tcfg.gamma, tcfg.gae_lambda,
-                gail_coef=0.0, env_coef=1.0,
-            )
+            with span("learner.returns"):
+                returns = compute_returns(
+                    rollout.gail_rewards, rollout.env_rewards,
+                    rollout.values, rollout.masks, tcfg.gamma,
+                    tcfg.gae_lambda, gail_coef=0.0, env_coef=1.0,
+                )
         else:
-            pre = wdgail_mod.validation_wd(
-                scene, env_cfg, state.disc, rollout, self.expert_val, gen,
-                policy_idx=d.val_pre)
-            disc_opt, disc_aux = wdgail_mod.disc_update(
-                scene, env_cfg, tcfg, state.disc, self.disc_optimizer,
-                disc_opt, rollout, self.expert, gen, n_epochs, d.disc,
-                group=self.group)
-            post = wdgail_mod.validation_wd(
-                scene, env_cfg, state.disc, rollout, self.expert_val, gen,
-                policy_idx=d.val_post)
-            gail_raw = wdgail_mod.relabel_rewards(scene, env_cfg,
-                                                  state.disc, rollout)
-            rollout.gail_rewards, reward_rms, returns_acc = (
-                self._gail_rewards(state, rollout, gail_raw))
-            returns = compute_returns(
-                rollout.gail_rewards, rollout.env_rewards, rollout.values,
-                rollout.masks, tcfg.gamma, tcfg.gae_lambda,
-            )
+            with span("learner.validation"):
+                pre = wdgail_mod.validation_wd(
+                    scene, env_cfg, state.disc, rollout, self.expert_val,
+                    gen, policy_idx=d.val_pre)
+            with span("learner.critic"):
+                disc_opt, disc_aux = wdgail_mod.disc_update(
+                    scene, env_cfg, tcfg, state.disc, self.disc_optimizer,
+                    disc_opt, rollout, self.expert, gen, n_epochs, d.disc,
+                    group=self.group)
+            with span("learner.validation"):
+                post = wdgail_mod.validation_wd(
+                    scene, env_cfg, state.disc, rollout, self.expert_val,
+                    gen, policy_idx=d.val_post)
+            with span("learner.relabel"):
+                gail_raw = wdgail_mod.relabel_rewards(scene, env_cfg,
+                                                      state.disc, rollout)
+                rollout.gail_rewards, reward_rms, returns_acc = (
+                    self._gail_rewards(state, rollout, gail_raw))
+            with span("learner.returns"):
+                returns = compute_returns(
+                    rollout.gail_rewards, rollout.env_rewards,
+                    rollout.values, rollout.masks, tcfg.gamma,
+                    tcfg.gae_lambda,
+                )
 
         # BCGAIL: skip the BC batches when their weight can never be
         # nonzero (the reference computes them at weight 0); bc_loss then
         # logs 0, its true value
         bc_active = tcfg.bcgail and tcfg.gail_gamma > 0.0
-        policy_opt, ppo_aux = ppo_mod.ppo_update(
-            scene, env_cfg, tcfg, state.policy, self.policy_optimizer,
-            state.policy_opt, rollout, returns, gen, state.gail_gamma,
-            self.expert if bc_active else None,
-            perms=d.ppo_perms, expert_idx=d.ppo_expert_idx,
-            group=self.group,
-        )
+        with span("learner.ppo"):
+            policy_opt, ppo_aux = ppo_mod.ppo_update(
+                scene, env_cfg, tcfg, state.policy, self.policy_optimizer,
+                state.policy_opt, rollout, returns, gen, state.gail_gamma,
+                self.expert if bc_active else None,
+                perms=d.ppo_perms, expert_idx=d.ppo_expert_idx,
+                group=self.group,
+            )
 
         new_state = dataclasses.replace(
             state,

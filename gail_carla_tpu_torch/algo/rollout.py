@@ -20,6 +20,7 @@ from gail_carla_tpu_torch.algo.buffers import Rollout, obs_batch, store_encode
 from gail_carla_tpu_torch.config import EnvConfig
 from gail_carla_tpu_torch.models import policy as policy_mod
 from gail_carla_tpu_torch.sim.env import StepDraws, step_batch
+from gail_carla_tpu_torch.utils.trace import span
 
 
 def stack_states(states: List):
@@ -61,7 +62,8 @@ def collect_rollout(
         draws = {} if env_draws is None else env_draws[t]._asdict()
         st2, out = step_batch(scene, cfg, st, action, generator, **draws)
         if store_obs:
-            tr["obs"].append(store_encode(cfg, obs))
+            with span("rollout.store"):
+                tr["obs"].append(store_encode(cfg, obs))
         tr["metrics"].append(metrics)
         tr["render"].append(render)
         tr["action"].append(action)
@@ -79,7 +81,8 @@ def collect_rollout(
     value_f, _, _ = policy_mod.act(net, obs_f, metrics, deterministic=True)
     obs_all = None
     if store_obs:
-        obs_all = torch.stack(tr["obs"] + [store_encode(cfg, obs_f)])
+        with span("rollout.store"):
+            obs_all = torch.stack(tr["obs"] + [store_encode(cfg, obs_f)])
 
     done = torch.stack(tr["done"])
     masks = 1.0 - done.to(torch.float32)

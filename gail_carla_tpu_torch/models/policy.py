@@ -14,6 +14,7 @@ from torch import nn
 
 from gail_carla_tpu_torch.config import ModelConfig
 from gail_carla_tpu_torch.models.processors import MetricsEncoder, ObsEncoder
+from gail_carla_tpu_torch.utils.trace import span
 
 LOG_2PI = 1.8378770664093453
 
@@ -73,16 +74,17 @@ def act(net: PolicyNet, obs, metrics, generator: Optional[torch.Generator]
     """Policy.act (model.py:25-36): (value, action, logp). ``noise`` holds
     the standard normal action draws (``policy.py:72``); it is drawn from
     ``generator`` when not given."""
-    value, mean, logstd = net(obs, metrics)
-    if deterministic:
-        action = mean
-    else:
-        if noise is None:
-            noise = torch.randn(mean.shape, generator=generator,
-                                device=mean.device)
-        action = mean + torch.exp(logstd) * noise
-    logp = normal_logprob(action, mean, logstd)
-    return value, action, logp
+    with span("policy.act"):
+        value, mean, logstd = net(obs, metrics)
+        if deterministic:
+            action = mean
+        else:
+            if noise is None:
+                noise = torch.randn(mean.shape, generator=generator,
+                                    device=mean.device)
+            action = mean + torch.exp(logstd) * noise
+        logp = normal_logprob(action, mean, logstd)
+        return value, action, logp
 
 
 def evaluate_actions(net: PolicyNet, obs, metrics, actions):

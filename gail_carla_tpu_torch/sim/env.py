@@ -54,6 +54,7 @@ from gail_carla_tpu_torch.sim.traffic import (
     step_traffic,
 )
 from gail_carla_tpu_torch.sim.transforms import norm2
+from gail_carla_tpu_torch.utils.trace import span
 
 
 @dataclasses.dataclass
@@ -313,6 +314,13 @@ def step_batch(
     Auto-resets on done and returns the new episode's observation with
     the finished episode's reward/done/info. The draws the step makes
     (see ``StepDraws``) come from ``generator`` unless given."""
+    with span("env.step"):
+        return _step(scene, cfg, state, action, generator, reset_draws,
+                     gnss_noise, traffic_coin, params)
+
+
+def _step(scene, cfg, state, action, generator, reset_draws, gnss_noise,
+          traffic_coin, params):
     if cfg.endless_extension and scene.endless_next is not None:
         state = chain_endless(scene, state)
     steer, throttle = action[:, 0], action[:, 1]
@@ -330,8 +338,9 @@ def step_batch(
     sim_time = step_count.to(torch.float32) * cfg.dt
     speed = torch.abs(ego.speed)
 
-    traffic = step_traffic(scene, cfg, state.traffic, ego, sim_time,
-                           traffic_coin, generator)
+    with span("sim.traffic"):
+        traffic = step_traffic(scene, cfg, state.traffic, ego, sim_time,
+                               traffic_coin, generator)
 
     # core criteria (blocked / deviation / completion / timeout)
     blocked_elapsed = torch.where(
