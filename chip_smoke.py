@@ -18,7 +18,11 @@ the training entry point ``train.run``.
   ``bev_raster`` (the TPU kernel ``ops/bev_pallas.py``);
 - the ``"bev6"`` path: 6-channel observation with 20 NPC vehicles and 50
   walkers per env (NoCrash "regular" Town01 densities), kernel
-  ``bev6_raster`` (the TPU kernel ``ops/bev6_pallas.py``);
+  ``bev6_raster`` (the TPU kernel ``ops/bev6_pallas.py``); then one
+  profiled forward and backward of its policy's conv encoder at
+  ``LAYOUT_ENVS`` envs, which must launch none of cuDNN's NCHW/NHWC
+  transposes (the encoder runs channels-last); it prints their count and
+  the conv kernels, conv1's named;
 - the ``"train bev"`` path: ``train.run(use_sharding=True)`` at the
   reference preset inside a world-1 NCCL group (the data-parallel
   learner, its collectives and the gathered checkpoint): the scripted
@@ -383,6 +387,14 @@ SCALE_LAUNCH_ENVS = (8192, 4096, SCALE_ENVS)
 SCALE_KEYS = ("metric", "n_envs", "obs_mode", "steps_per_update",
               "sec_per_update", "value", "unit", "hours_to_10M_steps")
 SCALE_PHASES = ("rollout", "disc epoch", "relabel", "gae", "ppo")
+# the encoder's layout check: one forward and backward of the bev6
+# policy's conv encoder at this many envs under the profiler; cuDNN's
+# layout transposes, by kernel name; the conv kernels, by name
+LAYOUT_ENVS = 1024
+TRANSPOSE_KERNELS = ("nchwToNhwc", "nhwcToNchw")
+CONV_KERNEL_WORDS = ("conv", "xmma", "fprop", "dgrad", "wgrad", "cutlass")
+# cuDNN's helpers beside a conv: workspace set-up, split-K reduction
+CONV_HELPER_WORDS = ("init_device_workspace", "ReduceSplitK")
 SEED = 0
 T0 = time.time()
 
@@ -858,6 +870,81 @@ def breakdown(scene, cfg: EnvConfig, net, gen, start, render_fn):
           f"env-steps/s", flush=True)
     progress(f"breakdown {cfg.obs_mode}", t)
     return parts
+
+
+def profiled_kernels(fn):
+    """Runs ``fn`` once under the profiler; returns the names and ms of
+    the device kernels it launched, in launch order."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    fd, path = tempfile.mkstemp(suffix=".json")
+    os.close(fd)
+    try:
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    finally:
+        os.remove(path)
+    kernels = sorted((e["ts"], e["name"], e["dur"] * 1e-3) for e in events
+                     if e.get("ph") == "X" and e.get("cat") == "kernel")
+    return [(name, ms) for _, name, ms in kernels]
+
+
+def encoder_layout(net6, width: int, dev) -> None:
+    """One forward and one backward (the weight gradients) of the bev6
+    policy's conv encoder at ``LAYOUT_ENVS`` envs of ``width`` px, each
+    profiled after a warm-up. The encoder runs channels-last
+    (``models/processors.py``), so cuDNN needs none of its NCHW/NHWC
+    transposes: raises unless 0 kernels are named after them. Prints that
+    count and the conv kernels in launch order (the forward's first and
+    the backward's last are conv1's)."""
+    t = time.time()
+    enc = net6.obs_enc
+    params = list(enc.parameters())
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 7)
+    c = enc.convs[0].in_channels
+    obs = torch.rand((LAYOUT_ENVS, c, width, width), generator=gen,
+                     device=dev)
+    box = {}
+
+    def forward():
+        box["loss"] = enc(obs).square().mean()
+
+    def backward():
+        torch.autograd.grad(box["loss"], params)
+
+    forward()                   # warm-up: cuDNN's engine choice
+    backward()
+    kernels = {"forward": profiled_kernels(forward),
+               "backward": profiled_kernels(backward)}
+    n_transposes = 0
+    for what, ks in kernels.items():
+        convs = [(n, ms) for n, ms in ks
+                 if any(word in n for word in CONV_KERNEL_WORDS)
+                 and not any(word in n for word in CONV_HELPER_WORDS)]
+        n_t = sum(any(k in n for k in TRANSPOSE_KERNELS) for n, _ in ks)
+        n_transposes += n_t
+        print(f"  encoder {what} at {LAYOUT_ENVS} envs ({c} channels): "
+              f"{len(ks)} kernels, {sum(ms for _, ms in ks):.3f} ms, "
+              f"layout transposes {n_t}; conv kernels in launch order: "
+              + " | ".join(f"{n[:100]} {ms:.3f} ms" for n, ms in convs),
+              flush=True)
+        if not convs:
+            raise AssertionError(f"no conv kernel in the encoder's {what}")
+        conv1 = convs[0] if what == "forward" else convs[-1]
+        print(f"  conv1 {what}: {conv1[0]}", flush=True)
+    print(f"[chip_smoke] encoder layout transposes: {n_transposes}",
+          flush=True)
+    if n_transposes:
+        raise AssertionError(f"{n_transposes} NCHW/NHWC transposes around "
+                             "the channels-last encoder's convs")
+    progress("encoder layout", t)
 
 
 def demos_to(demos: DemoBatch, dev) -> DemoBatch:
@@ -3556,6 +3643,7 @@ def main() -> int:
                                    bev6_cuda.LIB)
     breakdown(scene, env6_cfg, net6, gen, start6,
               bev6_cuda.render_bev6_cuda_batch)
+    encoder_layout(net6, w, dev)
 
     # --- the training path: train.run on the bev path, sharded over a
     # world-1 NCCL group (kept for the sharded phase's world-1 check) ---

@@ -77,7 +77,9 @@ def grad_penalty(net: DiscriminatorNet, expert, policy,
     mix_act = a2 * e_act + (1 - a2) * p_act
     d = net(mix_obs, mix_met, mix_act)
     (g,) = torch.autograd.grad(d.sum(), mix_obs, create_graph=True)
-    norm = torch.linalg.vector_norm(g.reshape(g.shape[0], -1), dim=1)
+    # g comes back channels-last from the encoder: a norm over its dims
+    # reads it in place, where a flatten would copy it
+    norm = torch.linalg.vector_norm(g, dim=(1, 2, 3))
     return lambda_ * torch.mean((norm - 1.0) ** 2)
 
 

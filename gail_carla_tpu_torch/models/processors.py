@@ -76,9 +76,14 @@ class ObsEncoder(nn.Module):
                 x = F.linear(x, layer.weight.to(dt), layer.bias.to(dt))
                 x = F.leaky_relu(x, self.cfg.leaky_slope)
             return x.float()
-        x = ((obs - self.mean) / self.std).to(dt)
+        # channels-last (NHWC) activations and kernels: the card's bf16
+        # conv engines take NHWC, and fed NCHW they transpose every conv's
+        # input and output; the flatten below is then a view
+        cl = torch.channels_last
+        x = ((obs - self.mean) / self.std).to(dt, memory_format=cl)
         for conv in self.convs:
-            x = F.conv2d(x, conv.weight.to(dt), conv.bias.to(dt), stride=2)
+            x = F.conv2d(x, conv.weight.to(dt, memory_format=cl),
+                         conv.bias.to(dt), stride=2)
             x = F.leaky_relu(x, self.cfg.leaky_slope)
         return x.permute(0, 2, 3, 1).reshape(x.shape[0], -1).float()
 
