@@ -1,38 +1,21 @@
 """Operations and bytes of the work a cell's algorithm needs, from shapes
-alone, whatever implements it: the policy's and the critic's convolutions
-and matrix products per row, the whole training update and rollout
+alone, whatever implements it: the policy's and the critic's image layers
+and matrix products per row (the configuration's nets module counts
+them, ``bench_port/nets/``), the whole training update and rollout
 chunk, and the bytes of one BEV render. Peaks of one NVIDIA H100 SXM
 (the data sheet, dense): 989 TFLOP/s bf16, 3.35 TB/s of HBM."""
 from __future__ import annotations
+
+from bench_port.nets import of
 
 PEAK_BF16 = 989e12
 PEAK_BYTES = 3.35e12
 
 
-def conv_flops(obs_shape, channels):
-    """Forward FLOPs (2 per multiply-add) of each k4 s2 VALID conv."""
-    c, _, w = obs_shape
-    out = []
-    for ch in channels:
-        w = (w - 4) // 2 + 1
-        out.append(2 * w * w * ch * c * 16)
-        c = ch
-    return out, w * w * c
-
-
-def dense_flops(dims):
-    return [2 * a * b for a, b in zip(dims[:-1], dims[1:])]
-
-
 def net_layers(model: dict, obs_shape, critic: bool):
-    """(conv FLOPs per layer, dense FLOPs per layer) of one row forward."""
-    convs, feat = conv_flops(obs_shape, model["conv_channels"])
-    base = feat + 5 + model["cmd_embed_dim"]
-    if critic:
-        dims = [base + 2, model["disc_hidden"], 1]
-    else:
-        dims = [base] + [model["hidden_size"]] * 3 + [model["head_size"], 3]
-    return convs, dense_flops(dims)
+    """(FLOPs of each layer that sees the image, FLOPs of each dense
+    layer) of one row forward, by the configuration's nets module."""
+    return of(model).net_layers(model, obs_shape, critic)
 
 
 def forward(model, obs_shape, critic: bool) -> int:

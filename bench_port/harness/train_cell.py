@@ -48,9 +48,14 @@ def configs(cell, config_cls):
     env = config_cls.EnvConfig(
         train=True, obs_mode=c["obs_mode"], bev_width=c["bev_width"],
         n_npc_vehicles=tr["n_npc_vehicles"], n_npc_walkers=tr["n_npc_walkers"])
-    m = dict(c["model"])
-    m["conv_channels"] = tuple(m["conv_channels"])
-    m["logstd"] = tuple(m["logstd"])
+    # "nets" is the harness's key (bench_port/nets/); a key that only a
+    # configuration's own nets read reaches the program's ModelConfig,
+    # which raises if the program lacks it, and not the frozen one
+    m = {k: tuple(v) if isinstance(v, list) else v
+         for k, v in c["model"].items() if k != "nets"}
+    if config_cls is fconf:
+        names = {f.name for f in dataclasses.fields(fconf.ModelConfig)}
+        m = {k: v for k, v in m.items() if k in names}
     model = config_cls.ModelConfig(**m)
     if cell.workload["entry"] != "train":
         return env, model, None

@@ -1,9 +1,11 @@
 """The policy's and the critic's weights, made on the device from the
 seed in a few large calls: flax's default initialisers (kernels truncated
 normal at two sigmas with variance 1/fan_in, zero biases, embeddings of
-variance 1/features), in float32, the type the nets keep them in. The
-same values go to the program (flax layout, which ``WDGAILLearner`` and
-``convert.policy_from_flax`` take) and to the reference."""
+variance 1/features), in float32, the type the nets keep them in, for
+the tree that the configuration's nets module lists
+(``bench_port/nets/``). The same values go to the program (flax layout,
+which ``WDGAILLearner`` and ``convert.policy_from_flax`` take) and to
+the reference."""
 from __future__ import annotations
 
 import math
@@ -11,45 +13,14 @@ import math
 import torch
 
 from bench_port.harness.feed import generator
+from bench_port.nets import of
 
 TRUNC_STD = 0.87962566103423978   # sd of a unit normal cut at +-2 sigma
 
 
-def conv_out_width(width: int, n_convs: int) -> int:
-    for _ in range(n_convs):
-        width = (width - 4) // 2 + 1
-    return width
-
-
-def layer_shapes(model: dict, obs_shape, critic: bool):
-    """[(flax path, shape, fan_in or None)] of the kernels, biases and the
-    command embedding; fan_in None marks a zero bias."""
-    c, _, w = obs_shape
-    out = []
-    cin = c
-    for i, ch in enumerate(model["conv_channels"]):
-        out.append((("ObsEncoder_0", f"Conv_{i}", "kernel"), (4, 4, cin, ch),
-                    16 * cin))
-        out.append((("ObsEncoder_0", f"Conv_{i}", "bias"), (ch,), None))
-        cin = ch
-    side = conv_out_width(w, len(model["conv_channels"]))
-    feat = side * side * model["conv_channels"][-1]
-    out.append((("MetricsEncoder_0", "Embed_0", "embedding"),
-                (model["max_road_options"], model["cmd_embed_dim"]), "embed"))
-    if critic:
-        dims = [feat + 5 + model["cmd_embed_dim"] + 2, model["disc_hidden"], 1]
-    else:
-        dims = ([feat + 5 + model["cmd_embed_dim"]]
-                + [model["hidden_size"]] * 3 + [model["head_size"], 3])
-    for i in range(len(dims) - 1):
-        out.append(((f"Dense_{i}", "kernel"), (dims[i], dims[i + 1]), dims[i]))
-        out.append(((f"Dense_{i}", "bias"), (dims[i + 1],), None))
-    return out
-
-
 def make_params(model: dict, obs_shape, critic: bool, seed: int, device):
     """Flax-layout ``{"params": {...}}`` of device tensors."""
-    shapes = layer_shapes(model, obs_shape, critic)
+    shapes = of(model).param_shapes(model, obs_shape, critic)
     sizes = [math.prod(s) for _, s, f in shapes if f is not None]
     g = generator(device, seed, "critic" if critic else "policy")
     x = torch.randn(sum(sizes), generator=g, device=device)

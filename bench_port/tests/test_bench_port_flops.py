@@ -1,5 +1,7 @@
-"""``bench_port/flops.py`` against PyTorch's own count of the frozen nets'
-operations at the preset's widths, and the render's bytes by hand."""
+"""``bench_port/flops.py`` against PyTorch's own count of the operations
+of each configuration's reference nets, by its nets module
+(``bench_port/nets/``: ``cnn4`` at the preset's widths, the tests'
+residual module at a tiny size), and the render's bytes by hand."""
 import json
 import os
 
@@ -15,6 +17,7 @@ from bench_port.plain_reference.frozen.models.discriminator import (
     grad_penalty,
 )
 from bench_port.plain_reference.nets import make_nets
+from bench_port.tests import nets_residual_tiny as tiny
 
 
 class Count(TorchDispatchMode):
@@ -33,18 +36,34 @@ class Count(TorchDispatchMode):
         return out
 
 
-@pytest.fixture(scope="module", params=[6, 3])
+def configured():
+    """(config, model, obs shape) of every configuration file, each on its
+    own obs, and ``wdgail_bev6`` also on the 3-channel obs of the
+    reference preset: a new configuration's nets module is counted here
+    without an edit."""
+    out = []
+    for name in sorted(os.listdir(os.path.join(BENCH_DIR, "configs"))):
+        with open(os.path.join(BENCH_DIR, "configs", name)) as f:
+            cfg = json.load(f)
+        w = cfg["bev_width"]
+        out.append((cfg["name"], cfg["model"],
+                    (6 if cfg["obs_mode"] == "bev6" else 3, w, w)))
+        if cfg["name"] == "wdgail_bev6":
+            out.append((cfg["name"], cfg["model"], (3, w, w)))
+    return out + [("tests", tiny.MODEL, tiny.OBS_SHAPE)]
+
+
+@pytest.fixture(scope="module", params=configured(),
+                ids=lambda p: f"{p[0]}-{p[1].get('nets', 'cnn4')}-{p[2][0]}")
 def nets(request):
-    """The configuration's nets on its 6-channel obs and on the 3-channel
-    one of the reference preset."""
-    with open(os.path.join(BENCH_DIR, "configs", "wdgail_bev6.json")) as f:
-        cfg = json.load(f)
-    m = cfg["model"]
-    shape = (request.param, cfg["bev_width"], cfg["bev_width"])
+    """The nets of each configuration (and of the tests' residual module),
+    by dispatch on the model's nets module."""
+    _, m, shape = request.param
     cpu = torch.device("cpu")
-    pol, disc = make_nets(m, shape, W.make_params(m, shape, False, 1, cpu),
-                          W.make_params(m, shape, True, 1, cpu), cpu)
-    return m, shape, pol, disc
+    with tiny.registered():
+        pol, disc = make_nets(m, shape, W.make_params(m, shape, False, 1, cpu),
+                              W.make_params(m, shape, True, 1, cpu), cpu)
+        yield m, shape, pol, disc
 
 
 def inputs(shape, b=2):

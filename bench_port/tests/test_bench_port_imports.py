@@ -1,8 +1,8 @@
 """What the benchmark loads: neither JAX nor the JAX package anywhere
 (top-level module names compared whole: the program's name,
 gail_carla_tpu_torch, begins with the JAX package's), nor the root's
-bench.py or chip_smoke.py; and the plain reference nothing of the
-program."""
+bench.py or chip_smoke.py; and the plain reference, with the nets
+modules (bench_port/nets/), nothing of the program."""
 import ast
 import os
 import subprocess
@@ -42,11 +42,12 @@ def test_nothing_imports_jax_or_the_jax_package():
 def test_reference_imports_nothing_of_the_program():
     # scipy: the frozen scene compiler's mask geometry (ndimage)
     allowed = STDLIB | {"torch", "numpy", "scipy", "__future__"}
-    for path in sources("plain_reference"):
+    for path in [*sources("plain_reference"), *sources("nets")]:
         for mod in imports(path):
             top = mod.split(".")[0]
             if top == "bench_port":
-                assert mod.startswith("bench_port.plain_reference"), (path, mod)
+                assert mod.startswith(("bench_port.plain_reference",
+                                       "bench_port.nets")), (path, mod)
             else:
                 assert top in allowed, (path, mod)
 
@@ -54,7 +55,7 @@ def test_reference_imports_nothing_of_the_program():
 def test_loading_the_reference_loads_no_program():
     code = ("import sys; sys.path.insert(0, %r)\n"
             "import bench_port.plain_reference.follow, "
-            "bench_port.plain_reference.check\n"
+            "bench_port.plain_reference.check, bench_port.nets.cnn4\n"
             "tops = {m.split('.')[0] for m in sys.modules}\n"
             "print(sorted(tops & {'gail_carla_tpu_torch', 'gail_carla_tpu',"
             " 'jax'}))" % ROOT)
